@@ -1,0 +1,44 @@
+"""Loaders for networkx graph pickles (port of ``gn_ode_sir_tpu.graphs.load``).
+
+Unpickle, undirect, restrict to the largest connected component. networkx
+is imported inside :func:`load_graph` only, so the package imports on a
+machine without it.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+
+from gn_ode_sir_tpu_torch.graphs.graph import Graph, graph_from_networkx
+
+
+def _stem(path: str) -> str:
+    base = os.path.basename(path)
+    return base[:-4] if base.endswith(".pkl") else base
+
+
+def load_graph(path: str, n_random: int = 50, seed: int = 0) -> Graph:
+    """Load one graph. ``path`` may omit the ``.pkl`` suffix.
+
+    ``path == 'none'`` returns a G(n, 0.2) random graph, the reference's
+    fallback dataset.
+    """
+    import networkx as nx
+
+    if path == "none":
+        G = nx.fast_gnp_random_graph(n_random, 0.2, seed=seed)
+        return graph_from_networkx(G, name=f"gnp{n_random}")
+
+    pkl = path if path.endswith(".pkl") else path + ".pkl"
+    if not os.path.exists(pkl) and not os.path.isabs(pkl):
+        # reference-style relative paths resolve against GN_ODE_SIR_DATA_ROOT
+        root = os.environ.get("GN_ODE_SIR_DATA_ROOT")
+        if root and os.path.exists(os.path.join(root, pkl)):
+            pkl = os.path.join(root, pkl)
+    with open(pkl, "rb") as f:
+        G = pickle.load(f)
+    G = G.to_undirected()
+    largest_cc = max(nx.connected_components(G), key=len)
+    G = G.subgraph(largest_cc)
+    return graph_from_networkx(G, name=_stem(path))

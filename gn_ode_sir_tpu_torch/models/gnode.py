@@ -1,0 +1,189 @@
+"""GN-ODE: continuous-time Graph-Network ODE for SIR dynamics
+(port of ``gn_ode_sir_tpu.models.gnode``).
+
+- C7, batched-trials single graph: ``activation='sigmoid'``, ``method='euler'``.
+- C6, legacy dense single trial: ``activation='relu'``,
+  ``deriv_layernorm=True``, ``encode_r=False``, ``method='rk4'``.
+
+Forward math:
+  encode:  E_c = relu(W_enc c0 + b_enc),  c in {S, I, R}
+  dy/dt:   Z_c = act(W_f E_c + b_f)
+           AI  = A @ Z_I
+           dS  = -beta * AI .* Z_S
+           dI  = -dS - gamma * Z_I
+           dR  = gamma * Z_I
+  decode:  p_c = W_d2 relu(W_d1 y_c + b_d1) + b_d2
+           (S, I, R) = softmax over the three channels
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+
+import numpy as np
+import torch
+
+from gn_ode_sir_tpu_torch.models.common import layer_norm, linear, linear_init
+from gn_ode_sir_tpu_torch.odeint import integer_time_indices, odeint_grid
+
+
+def _map_params(fn, params: dict) -> dict:
+    return {k: _map_params(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in params.items()}
+
+
+def _sigmoid(z: torch.Tensor) -> torch.Tensor:
+    """In bf16, 1 / (1 + exp(-z)) rounded after each op, as XLA expands the
+    reference's logistic; ``torch.sigmoid`` rounds once and drifts from it by
+    ~1e-2 over 39 euler steps. f32 takes the one fused kernel."""
+    if z.dtype == torch.bfloat16:
+        return torch.reciprocal(1 + torch.exp(-z))
+    return torch.sigmoid(z)
+
+
+def gnode_ode_func(t, y, args, *, activation: str, deriv_layernorm: bool):
+    """The GN-ODE vector field. y = (S, I, R) embeddings, each [B, n, h].
+
+    Dtype-polymorphic: with a bf16 state every op stays bf16 and A·Z_I (an
+    f32 result from every adjacency backend) is cast back to the state
+    dtype. The recovered channel's Z_R never enters the derivative, so only
+    Z_S and Z_I are computed."""
+    params, beta, gamma, adj = args
+    dt = y[0].dtype
+    z = linear(params["func"], torch.stack(y[:2]))  # [2, B, n, h]
+    z = _sigmoid(z) if activation == "sigmoid" else torch.relu(z)
+    zs, zi = z[0], z[1]
+    ai = adj.matvec(zi).to(dt)
+    b = beta.to(dt)[:, None, None]
+    g = gamma.to(dt)[:, None, None]
+    ds = -b * ai * zs
+    di = -ds - g * zi
+    dr = g * zi
+    if deriv_layernorm:  # legacy dense variant
+        ln = lambda u: layer_norm(params["ln_scale"], params["ln_bias"], u)
+        ds, di, dr = ln(ds), ln(di), ln(dr)
+    return (ds, di, dr)
+
+
+def _decode(params: dict, traj) -> torch.Tensor:
+    """(S, I, R) trajectory tuple of [T, B, n, h] -> probabilities [T, B, n, 3]."""
+    y = torch.stack(traj, dim=-2).float()  # [T, B, n, 3, h]
+    u = torch.relu(linear(params["dec1"], y))
+    v = linear(params["dec2"], u)[..., 0]  # [T, B, n, 3]
+    return torch.softmax(v, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class GNODE:
+    """Config + init/apply for the GN-ODE model family."""
+
+    hidden: int = 64
+    max_time: int = 20
+    delta_t: float = 0.5
+    method: str = "euler"
+    adjoint: str = "checkpoint"
+    activation: str = "sigmoid"
+    deriv_layernorm: bool = False
+    encode_r: bool = True
+    compute_dtype: str = "f32"  # 'bf16': ODE state + field matmuls in bfloat16
+
+    @property
+    def ts(self) -> np.ndarray:
+        return np.arange(0.0, self.max_time, self.delta_t, dtype=np.float32)
+
+    def init(self, generator: torch.Generator, *, device) -> dict:
+        lin = lambda i, o: linear_init(generator, i, o, device=device)
+        params = {
+            "enc": lin(1, self.hidden),
+            "func": lin(self.hidden, self.hidden),
+            "dec1": lin(self.hidden, 4),
+            "dec2": lin(4, 1),
+        }
+        if self.deriv_layernorm:
+            params["ln_scale"] = torch.ones(self.hidden, device=device)
+            params["ln_bias"] = torch.zeros(self.hidden, device=device)
+        return params
+
+    def _trajectory(self, params, adj, s0, i0, r0, beta, gamma):
+        if self.method == "dopri5_adaptive":
+            raise NotImplementedError(
+                "method='dopri5_adaptive' is not ported yet (ROADMAP.md Queue 1: odeint/dopri.py)")
+        enc = lambda c: torch.relu(linear(params["enc"], c[..., None]))
+        s = enc(s0)
+        i = enc(i0)
+        r = enc(r0) if self.encode_r else torch.zeros_like(s)
+        fparams = params
+        if self.compute_dtype == "bf16":
+            cast = lambda x: x.to(torch.bfloat16)
+            s, i, r = cast(s), cast(i), cast(r)
+            fparams = _map_params(cast, params)
+        func = partial(gnode_ode_func, activation=self.activation,
+                       deriv_layernorm=self.deriv_layernorm)
+        return odeint_grid(func, (s, i, r), self.ts, (fparams, beta, gamma, adj),
+                           method=self.method, adjoint=self.adjoint)
+
+    def apply(self, params, adj, s0, i0, r0, beta, gamma, *, rng=None, train=False):
+        """Full-grid forward.
+
+        Args:
+          adj: an adjacency with ``matvec`` (DenseAdj, CooAdj, Spmm2Adj).
+          s0, i0, r0: [B, n] initial per-node state indicators (tensors).
+          beta, gamma: [B] per-trial SIR rates.
+          rng, train: accepted for a uniform model interface (GNODE is
+            deterministic).
+        Returns probabilities [T_grid, B, n, 3] (softmax over SIR).
+        """
+        del rng, train
+        return _decode(params, self._trajectory(params, adj, s0, i0, r0, beta, gamma))
+
+    def predict(self, params, adj, s0, i0, r0, beta, gamma, *, rng=None, train=False):
+        """Probabilities at integer label times: [max_time, B, n, 3].
+
+        The decode is pointwise in time, so it runs on the resampled states
+        only — the same numbers as resampling :meth:`apply`'s output."""
+        del rng, train
+        traj = self._trajectory(params, adj, s0, i0, r0, beta, gamma)
+        idx = torch.as_tensor(integer_time_indices(self.max_time, self.delta_t),
+                              dtype=torch.long, device=traj[0].device)
+        return _decode(params, tuple(c[idx] for c in traj))
+
+
+def device_activation_budget(device=None, default: int = 2_000_000_000) -> int:
+    """Activation-memory budget for the direct solver: 1/8 of the card's
+    memory from ``torch.cuda.mem_get_info``; ``default`` (2 GB) on the CPU."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda":
+        _, total = torch.cuda.mem_get_info(device)
+        return int(total) // 8
+    return default
+
+
+def solver_policy(n_nodes: int, hidden: int, batch_size: int, max_time: int,
+                  delta_t: float, adjoint: str = "auto", unroll: int = 0,
+                  budget_bytes: int | None = None, device=None):
+    """Resolve (adjoint, solver_unroll): 'auto' picks direct while the
+    T*3*B*n*h*4-byte trajectory fits ``budget_bytes`` (default: from
+    ``device``), else the checkpointed solver."""
+    n_steps = int(round(max_time / delta_t))
+    if budget_bytes is None:
+        budget_bytes = device_activation_budget(device)
+    if adjoint == "auto":
+        est = n_steps * 3 * batch_size * n_nodes * hidden * 4
+        adjoint = "direct" if est < budget_bytes else "checkpoint"
+    if unroll <= 0:
+        unroll = (n_steps - 1) if adjoint == "direct" else 1
+    return adjoint, max(1, unroll)
+
+
+def legacy_dense_gnode(hidden: int = 32, max_time: int = 20, delta_t: float = 0.5) -> GNODE:
+    """The C6 single-trial dense variant."""
+    return GNODE(
+        hidden=hidden,
+        max_time=max_time,
+        delta_t=delta_t,
+        method="rk4",
+        activation="relu",
+        deriv_layernorm=True,
+        encode_r=False,
+    )

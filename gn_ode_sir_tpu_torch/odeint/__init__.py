@@ -1,0 +1,16 @@
+"""ODE solver layer (port of ``gn_ode_sir_tpu.odeint``): fixed-grid
+euler/midpoint/rk4/dopri5 and the integer-time resampling."""
+
+from gn_ode_sir_tpu_torch.odeint.resample import (
+    integer_time_indices,
+    resample_integer_times,
+)
+from gn_ode_sir_tpu_torch.odeint.solvers import METHODS, odeint_grid, step_fn
+
+__all__ = [
+    "METHODS",
+    "odeint_grid",
+    "step_fn",
+    "integer_time_indices",
+    "resample_integer_times",
+]

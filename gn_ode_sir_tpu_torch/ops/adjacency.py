@@ -1,0 +1,74 @@
+"""Adjacency backends for model code (port of ``gn_ode_sir_tpu.ops.adjacency``).
+
+Message passing is ``adj.matvec(x)`` with ``x`` of shape [B, n, h]; every
+backend returns float32.
+
+- :class:`DenseAdj` — a matmul with the materialized adjacency (f32 or bf16).
+- :class:`CooAdj`   — gather + ``index_add_`` over a shared [E] edge list.
+- :class:`~gn_ode_sir_tpu_torch.ops.spmm2.Spmm2Adj` — the CUDA kernel K1.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from gn_ode_sir_tpu_torch.ops.spmm import DENSE_NODE_THRESHOLD, spmm_coo_batched, spmm_dense
+
+KINDS = ("auto", "dense", "dense-bf16", "coo", "ell", "pallas2", "pallas2-bf16")
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseAdj:
+    """Dense adjacency [n, n] (shared) or [B, n, n] (per-sample).
+
+    With a bf16 ``a`` (exact for {0,1}) the activations are rounded to bf16
+    and the product is taken in f32 — bf16 x bf16 products are exact in f32
+    and the sum is f32, which is what the JAX einsum with
+    ``preferred_element_type=float32`` computes (a bf16 ``torch.matmul``
+    would round its result to bf16)."""
+
+    a: torch.Tensor
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return spmm_dense(self.a, x.to(torch.bfloat16) if self.a.dtype == torch.bfloat16 else x)
+
+
+@dataclasses.dataclass(frozen=True)
+class CooAdj:
+    """COO adjacency with ``src``/``dst`` [E] shared across the batch."""
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    w: torch.Tensor | None
+    n_nodes: int
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return spmm_coo_batched(self.src, self.dst, x, self.n_nodes, self.w)
+
+
+def adjacency_from_graph(graph, *, kind: str = "auto", device):
+    """Build the adjacency for a host-side :class:`Graph` on ``device``.
+
+    ``kind``: 'auto' (dense up to ``DENSE_NODE_THRESHOLD`` nodes, K1 above
+    it, on any device — on a CPU tensor K1 runs its plain version), or an
+    explicit 'dense' | 'dense-bf16' | 'coo' | 'pallas2' | 'pallas2-bf16'."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown adjacency kind {kind!r}")
+    if kind == "auto":
+        kind = "dense" if graph.n_nodes <= DENSE_NODE_THRESHOLD else "pallas2"
+    if kind in ("dense", "dense-bf16"):
+        dtype = torch.bfloat16 if kind == "dense-bf16" else torch.float32
+        return DenseAdj(torch.as_tensor(graph.dense_adjacency, device=device).to(dtype))
+    if kind == "coo":
+        return CooAdj(torch.as_tensor(graph.src, device=device),
+                      torch.as_tensor(graph.dst, device=device), None, graph.n_nodes)
+    if kind in ("pallas2", "pallas2-bf16"):
+        from gn_ode_sir_tpu_torch.ops.spmm2 import Spmm2Adj
+
+        return Spmm2Adj.from_graph(
+            graph, precision="bf16" if kind.endswith("bf16") else "f32",
+            device=device)
+    raise NotImplementedError(
+        "the 'ell' adjacency is not ported yet (ROADMAP.md Queue 1: ops/ell.py)")

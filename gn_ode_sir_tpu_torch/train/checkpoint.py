@@ -1,0 +1,51 @@
+"""The port's params checkpoint and the JAX <-> port params converter.
+
+Params are the nested dict both packages share
+(``{"enc": {"w": [1, h], "b": [h]}, "func": ..., "dec1": ..., "dec2": ...}``).
+The port saves it with ``torch.save`` and loads it with
+``torch.load(weights_only=True)``. It cannot read an Orbax checkpoint (Orbax
+imports JAX): the JAX side restores one and hands its leaves over as numpy
+arrays, which :func:`params_from_numpy` turns into the port's tensors.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_path(directory: str, name: str = "serve") -> str:
+    return os.path.join(directory, f"{name}.pt")
+
+
+def save_params(directory: str, params: dict, name: str = "serve") -> str:
+    """Write ``params`` (moved to the CPU) to ``<directory>/<name>.pt``."""
+    os.makedirs(directory, exist_ok=True)
+    path = params_path(directory, name)
+    torch.save(_map(lambda t: t.detach().cpu(), params), path)
+    return path
+
+
+def restore_params(directory: str, name: str = "serve", *, device) -> dict:
+    """Load ``<directory>/<name>.pt`` onto ``device``."""
+    tree = torch.load(params_path(directory, name), map_location="cpu", weights_only=True)
+    return _map(lambda t: t.to(device), tree)
+
+
+def params_from_numpy(tree, *, device) -> dict:
+    """JAX params with numpy leaves (``tree_map(np.asarray, params)``) -> the
+    port's params on ``device``."""
+    return _map(lambda a: torch.tensor(np.asarray(a), device=device), tree)
+
+
+def params_to_numpy(params) -> dict:
+    """The port's params -> numpy leaves, the form the JAX side accepts."""
+    return _map(lambda t: t.detach().cpu().numpy(), params)
