@@ -2,28 +2,45 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path on one NVIDIA card at enron size and holds
-every hand-written kernel against its plain PyTorch version. Phases, each
-printed as one JSON line:
+Drives the port's main paths on one NVIDIA card at enron size — serving, and
+labels -> training -> CSV — and holds every hand-written kernel against its
+plain PyTorch version. Phases, each printed as one JSON line:
 
 1. device — the card (and ``nvidia-smi``'s name and power limit, raw);
 2. build  — every kernel compiled from ``gn_ode_sir_tpu_torch/csrc``;
-3. kernel — K1 against its plain version on the card at the serving shapes
-   and at edge cases, with kernel / plain / library times and the bound;
+3. kernel — each kernel against its plain version on the card at the main
+   paths' shapes and at edge cases, with kernel / plain / library times and
+   the bound: K1 (forward, at serving's batch 8 and training's batch 1), K2
+   (the fused SIR step: one trial, four trials, and the whole chunk of
+   trials the label path puts into one launch, with the count product timed
+   beside it and checked for exactness on the hub), K1-bwd (the gradient
+   through the autograd Function, and the Function's forward);
 4. serve  — C7 GN-ODE (hidden 64, euler, deltaT 0.5, maxTime 20) with
    seeded random params, scored through ``cli.worker``/``cli.infer``:
    16 summary scenarios in dispatches of 8 and 2 full-trajectory scenarios,
    K1 launch counts per dispatch, and the card's output against the same
    path on the CPU;
-5. kernels — one line listing every ported kernel;
+5. labels — Monte-Carlo labels of six trials (10,000 simulations each)
+   through ``utils.load_or_extract_labels_many``: K2 launch counts, label
+   invariants, and a second call that is a pure cache hit;
+6. train  — ``cli.worker.main`` (C7, batch 1, Adam lr 1e-4, 2 epochs) on
+   those six trials: K1 forward and backward launch counts, losses, the CSV
+   row, the saved checkpoint served through ``cli.infer``, and one training
+   step on the card against the same step on the CPU;
+7. kernels — one line listing every ported kernel;
 and last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before doing anything.
 """
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import dataclasses
+import io
 import json
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -37,7 +54,12 @@ from gn_ode_sir_tpu_torch.cli import infer, worker
 from gn_ode_sir_tpu_torch.graphs.graph import Graph, graph_from_edges
 from gn_ode_sir_tpu_torch.ops import _kernels
 from gn_ode_sir_tpu_torch.ops.spmm2 import CsrPlan, Spmm2Adj, spmm2, spmm2_plain
+from gn_ode_sir_tpu_torch.sim import mc_sir
+from gn_ode_sir_tpu_torch.sim.fused_step import philox4x32_words, sir_step, sir_update_plain
+from gn_ode_sir_tpu_torch.train import build_trial_data, l1_sir_loss
 from gn_ode_sir_tpu_torch.train.checkpoint import save_params
+from gn_ode_sir_tpu_torch.utils import load_or_extract_labels_many
+from gn_ode_sir_tpu_torch.utils.csvsink import TRIAL_COLUMNS
 
 SEED = 0
 ENRON_NODES = 33_696  # enron's largest connected component
@@ -51,6 +73,13 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 KERNEL_REL_TOL = 1e-5  # |kernel - plain| <= tol * (1 + sum_e |w_e x_src|)
 SERVE_ATOL = 1e-4  # card vs CPU probabilities after 39 steps
+K2_NEAR_SHARE = 1e-5  # K2 states may differ from plain only within 1 of a threshold
+LABEL_TRIALS = 6
+LABEL_SIMS = 10_000
+MAX_TIME = 20  # label times 0..19: 19 simulated steps
+TRAIN_EPOCHS = 2
+STEP_LOSS_ATOL = 1e-5  # one training step, card vs CPU
+STEP_GRAD_RTOL = 1e-4  # per gradient leaf, max-norm
 
 
 def emit(obj) -> None:
@@ -113,6 +142,28 @@ def phase_build() -> None:
           "built": report, "kernels": sorted(_kernels.KERNELS)})
 
 
+def spmm2_bound(plan, x) -> dict:
+    """The least time the card could take for one K1 apply of ``plan`` to
+    ``x`` [B, n, h]: x read once, the plan read once, the f32 result written
+    once, over the memory rate; 2 operations per edge and column over the
+    f32 rate."""
+    n, e = plan.n_nodes, plan.src.numel()
+    batch, h = x.shape[0], x.shape[-1]
+    bytes_moved = x.numel() * x.element_size() + 2 * e * 4 + (n + 1) * 4 + batch * n * h * 4
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, 2 * e * batch * h / F32_FLOP_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def spmm2_library_ms(plan, x) -> float:
+    """Yardstick only (never called by the port): one CSR sparse product on
+    the node-major [n, B*h] layout of the same values."""
+    n = plan.n_nodes
+    a = torch.sparse_csr_tensor(plan.row_ptr.long(), plan.src.long(), plan.w, size=(n, n))
+    xt = x.permute(1, 0, 2).reshape(n, -1).contiguous()
+    return time_ms(lambda: torch.sparse.mm(a, xt), 50)
+
+
 def check_spmm2_case(name, graph, batch, h, precision, x_dtype, *, timed,
                      weighted=False):
     """K1 against its plain version on the card; raises on disagreement."""
@@ -134,28 +185,17 @@ def check_spmm2_case(name, graph, batch, h, precision, x_dtype, *, timed,
         raise AssertionError(
             f"{name}: kernel disagrees with its plain version at {int(bad.sum())} "
             f"elements (max abs err {float(err.max())})")
-    n, e = graph.n_nodes, graph.n_edges
-    bytes_moved = x.numel() * x.element_size() + 2 * e * 4 + (n + 1) * 4 + batch * n * h * 4
-    flops = 2 * e * batch * h
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    row = {"phase": "kernel", "kernel": "spmm2", "case": name, "n": n, "edges": e,
-           "batch": batch, "h": h, "precision": precision,
+    row = {"phase": "kernel", "kernel": "spmm2", "case": name, "n": graph.n_nodes,
+           "edges": graph.n_edges, "batch": batch, "h": h, "precision": precision,
            "x_dtype": str(x_dtype).replace("torch.", ""),
            "max_abs_err": float(err.max()) if err.numel() else 0.0,
            "tol": f"{KERNEL_REL_TOL} * (1 + sum|w x|)", "ok": True,
-           "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+           **spmm2_bound(plan, x)}
     if timed:
         row["kernel_ms"] = time_ms(lambda: spmm2(plan, x, precision), 50)
         row["plain_ms"] = time_ms(lambda: spmm2_plain(plan, x, precision), 10)
-        row["library_ms"] = None
-        if precision == "f32" and x_dtype == torch.float32:
-            # yardstick only (never called by the port): one CSR sparse
-            # product on the node-major [n, B*h] layout of the same values
-            a = torch.sparse_csr_tensor(plan.row_ptr.long(), plan.src.long(), plan.w,
-                                        size=(n, n))
-            xt = x.permute(1, 0, 2).reshape(n, batch * h).contiguous()
-            row["library_ms"] = time_ms(lambda: torch.sparse.mm(a, xt), 50)
+        row["library_ms"] = (spmm2_library_ms(plan, x)
+                             if precision == "f32" and x_dtype == torch.float32 else None)
     emit(row)
     return row
 
@@ -170,6 +210,7 @@ def phase_kernel(graph) -> dict:
     main = check_spmm2_case("enron_b8_h64_f32", graph, DISPATCH_BATCH, 64, "f32", f32,
                             timed=True)
     check_spmm2_case("enron_b4_h64_f32", graph, 4, 64, "f32", f32, timed=True)
+    check_spmm2_case("enron_b1_h64_f32", graph, 1, 64, "f32", f32, timed=True)  # training, batch 1
     check_spmm2_case("enron_b4_h64_bf16msg", graph, 4, 64, "bf16", f32, timed=True)
     check_spmm2_case("enron_b4_h64_bf16x", graph, 4, 64, "f32", bf16, timed=True)
     check_spmm2_case("enron_b2_h64_weighted", graph, 2, 64, "f32", f32, timed=False,
@@ -182,6 +223,211 @@ def phase_kernel(graph) -> dict:
     row = check_spmm2_case("edgeless", edgeless, 2, 64, "f32", f32, timed=False)
     if row["max_abs_err"] != 0.0:
         raise AssertionError("edgeless graph must give exact zeros")
+    return main
+
+
+def check_spmm2_bwd_case(name, graph, batch, precision, *, timed, weighted=False):
+    """K1-bwd: the gradient through the autograd Function on the card against
+    (f32) autograd through the plain version, or (bf16) the plain version on
+    the transpose plan with bf16 messages; raises on disagreement."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([SEED, zlib.crc32(name.encode())])
+    w = rng.uniform(0.5, 1.5, graph.n_edges).astype(np.float32) if weighted else None
+    adj = Spmm2Adj.from_graph(graph, w=w, precision=precision, device=dev)
+    shape = (batch, graph.n_nodes, 64)
+    x = torch.as_tensor(rng.standard_normal(shape, np.float32), device=dev).requires_grad_(True)
+    g = torch.as_tensor(rng.standard_normal(shape, np.float32), device=dev)
+    before = (spmm2.launches, spmm2.backward_launches)
+    y = adj.matvec(x)
+    (got,) = torch.autograd.grad(y, x, g)
+    if (spmm2.launches - before[0], spmm2.backward_launches - before[1]) != (2, 1):
+        raise AssertionError(f"{name}: expected one forward and one backward K1 launch")
+    xd = x.detach()
+    y_want = spmm2_plain(adj.plan, xd, precision)
+    y_scale = spmm2_plain(dataclasses.replace(adj.plan, w=adj.plan.w.abs()), xd.abs(), precision)
+    if ((y.detach() - y_want).abs() > KERNEL_REL_TOL * (1.0 + y_scale)).any():
+        raise AssertionError(f"{name}: the Function's forward disagrees with the plain version")
+    if precision == "f32":
+        (want,) = torch.autograd.grad(spmm2_plain(adj.plan, x), x, g)
+    else:
+        want = spmm2_plain(adj.plan_t, g, "bf16")
+    plan_t = adj.plan_t
+    scale = spmm2_plain(dataclasses.replace(plan_t, w=plan_t.w.abs()), g.abs(), precision)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    bad = err > KERNEL_REL_TOL * (1.0 + scale)
+    if got.shape != x.shape or not torch.isfinite(got).all() or bad.any():
+        raise AssertionError(
+            f"{name}: K1-bwd disagrees with its plain version at {int(bad.sum())} "
+            f"elements (max abs err {float(err.max())})")
+    row = {"phase": "kernel", "kernel": "spmm2_bwd", "case": name, "n": graph.n_nodes,
+           "edges": graph.n_edges, "batch": batch, "h": 64, "precision": precision,
+           "weighted": weighted, "max_abs_err": float(err.max()),
+           "tol": f"{KERNEL_REL_TOL} * (1 + sum|w g|)", "ok": True,
+           **spmm2_bound(plan_t, g)}
+    if timed:
+        row["kernel_ms"] = time_ms(lambda: spmm2(plan_t, g, precision), 50)
+        row["plain_ms"] = time_ms(lambda: spmm2_plain(plan_t, g, precision), 10)
+        row["library_ms"] = spmm2_library_ms(plan_t, g) if precision == "f32" else None
+    emit(row)
+    return row
+
+
+def phase_kernel_bwd(graph) -> dict:
+    main = check_spmm2_bwd_case("bwd_enron_b1_f32", graph, 1, "f32", timed=True)
+    check_spmm2_bwd_case("bwd_enron_b8_f32", graph, DISPATCH_BATCH, "f32", timed=True)
+    check_spmm2_bwd_case("bwd_enron_b2_weighted", graph, 2, "f32", timed=False, weighted=True)
+    check_spmm2_bwd_case("bwd_enron_b2_bf16_weighted", graph, 2, "bf16", timed=True,
+                         weighted=True)
+    return main  # batch 1 is the training path's shape
+
+
+def check_sir_step_case(name, i, r, counts, betas, gammas, sims, *, step=3, timed=False,
+                        seed_list=None):
+    """K2 against its plain version on the card with the same seeds and step,
+    one trial's rows at a time (so the plain side never holds more than one
+    trial). The Philox words must be equal; the states must be equal except
+    where the low half-word lies within 1 of p_inf * 2^16 (where a last-bit
+    difference in expm1 could flip the coin), and those must stay under
+    ``K2_NEAR_SHARE`` of the elements. Raises otherwise."""
+    dev = torch.device("cuda")
+    rows, n = i.shape
+    trials = rows // sims
+    log1m_beta = torch.log1p(-torch.tensor(betas, dtype=torch.float32)).to(dev)
+    gamma16 = (torch.tensor(gammas, dtype=torch.float32) * 65536.0).to(dev)
+    if seed_list is None:
+        seed_list = [mc_sir.fold_seed(SEED, 77 + j) for j in range(trials)]
+    seeds = torch.tensor(seed_list, dtype=torch.int64, device=dev)
+    trial_rows = lambda j: slice(j * sims, (j + 1) * sims)
+
+    def plain_trial(j):
+        sl = trial_rows(j)
+        words = philox4x32_words(seed_list[j], step, sims * n, device=dev).reshape(sims, n)
+        return (*sir_update_plain(i[sl], r[sl], counts[sl], log1m_beta[j], gamma16[j], words),
+                words)
+
+    before = sir_step.launches
+    ki, kr, kwords = sir_step(i, r, counts, log1m_beta, gamma16, seeds, step, sims=sims,
+                              return_words=True)
+    if sir_step.launches != before + 1:
+        raise AssertionError(f"{name}: the wrapper did not count its launch")
+    mismatched, max_err = 0, 0
+    for j in range(trials):
+        sl = trial_rows(j)
+        pi, pr, pwords = plain_trial(j)
+        if not torch.equal(kwords[sl], pwords):
+            raise AssertionError(
+                f"{name}: trial {j}: the kernel's Philox words differ from the plain version's")
+        diff = (ki[sl] != pi) | (kr[sl] != pr)
+        if diff.any():
+            thresh = -torch.expm1(counts[sl].float() * log1m_beta[j]) * 65536.0
+            near = ((pwords & 0xFFFF).float() - thresh).abs() <= 1.0
+            if (diff & ~near).any():
+                raise AssertionError(
+                    f"{name}: trial {j}: K2 disagrees with its plain version away from a threshold")
+            mismatched += int(diff.sum())
+        max_err = max(max_err, int((ki[sl] - pi).abs().max()), int((kr[sl] - pr).abs().max()))
+        del pi, pr, pwords, diff
+    if mismatched > K2_NEAR_SHARE * i.numel():
+        raise AssertionError(
+            f"{name}: K2 disagrees with its plain version at {mismatched} elements")
+    if ki.dtype != torch.int8 or ((ki + kr) > 1).any() or (ki < 0).any() or (kr < r).any():
+        raise AssertionError(f"{name}: K2 wrote an invalid state")
+    bytes_moved = i.numel() * (2 + counts.element_size() + 2)
+    row = {"phase": "kernel", "kernel": "sir_step", "case": name, "rows": rows, "n": n,
+           "trials": trials, "counts_dtype": str(counts.dtype).replace("torch.", ""),
+           "last_flat_offset": i.numel() - 1, "words_equal": True, "mismatched": mismatched,
+           "max_abs_err": float(max_err),
+           "tol": f"equal but for <= {K2_NEAR_SHARE} of elements within 1 of a threshold",
+           "newly_infected": int(((ki == 1) & (i == 0)).sum()),
+           "newly_recovered": int((kr - r).sum(dtype=torch.int64)), "ok": True,
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    del ki, kr, kwords
+    if timed:
+        call = lambda: sir_step(i, r, counts, log1m_beta, gamma16, seeds, step, sims=sims)
+        row["kernel_ms"] = time_ms(call, 20)
+
+        def plain_all():  # one trial at a time, as the comparison above
+            for j in range(trials):
+                plain_trial(j)
+
+        row["plain_ms"] = time_ms(plain_all, 2, warmup=1)
+        row["library_ms"] = None  # no single PyTorch call computes this function
+    emit(row)
+    return row
+
+
+def _random_state(rows, n, share, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand((rows, n), device=dev, generator=gen)
+    return (u < share).to(torch.int8), ((u >= share) & (u < 2 * share)).to(torch.int8)
+
+
+def phase_kernel_k2(graph, chunk_trials) -> dict:
+    """K2 at the label path's shapes, with the count product beside it.
+    ``chunk_trials``: the (seed nodes, beta, gamma) trials of the one chunk the
+    label path dispatches; trial k runs under seed 1000 + k. Returns the row
+    of that chunk's shape."""
+    dev = torch.device("cuda")
+    n = graph.n_nodes
+    # small and awkward shapes: numel not a multiple of 4, one row, beta = 0,
+    # gamma = 0 and 1, trials whose elements are not a multiple of 4
+    for name, rows, cols, sims, betas, gammas in (
+            ("one_row_n34", 1, 34, 1, [0.3], [0.1]),
+            ("odd_numel_beta0_gamma0", 7, 33, 7, [0.0], [0.0]),
+            ("three_trials_gamma_0_1", 9, 35, 3, [0.2, 0.5, 0.1], [1.0, 0.0, 0.3])):
+        i, r = _random_state(rows, cols, 0.2, dev, rows)
+        counts = torch.randint(0, 9, (rows, cols), device=dev, dtype=torch.int32)
+        for c in (counts, counts.float()):
+            row = check_sir_step_case(name, i, r, c, betas, gammas, sims)
+        if name.startswith("odd") and (row["newly_infected"] or row["newly_recovered"]):
+            raise AssertionError("beta = 0 and gamma = 0 must leave the state as it was")
+
+    # the count product at [10,000 x n]: both routes, exact on the hub column
+    # against an int64 sum over the hub's neighbours
+    i, r = _random_state(LABEL_SIMS, n, 0.05, dev, SEED)
+    hub = int(np.argmax(graph.degrees))
+    nbrs = torch.as_tensor(graph.src[graph.dst == hub], dtype=torch.long, device=dev)
+    i[: LABEL_SIMS // 2, nbrs] = 1  # half the simulations see the whole hub infected
+    i, r = i.contiguous(), (r * (1 - i)).contiguous()
+    want_hub = i[:, nbrs].long().sum(1)
+    product = {}
+    counts_by_route = {}
+    for route in ("int8", "bf16"):
+        a = mc_sir.device_adjacency(graph, route, dev)
+        counts = mc_sir.count_product(i, a)
+        if not torch.equal(counts[:, hub].long(), want_hub) or int(want_hub.max()) <= 256:
+            raise AssertionError(f"count product ({route}) is not exact on the hub column")
+        product[route + "_ms"] = time_ms(lambda: mc_sir.count_product(i, a), 5, warmup=2)
+        counts_by_route[route] = counts
+    if not torch.equal(counts_by_route["int8"].float(), counts_by_route["bf16"]):
+        raise AssertionError("the int8 and bf16 count products differ")
+    ops = 2 * LABEL_SIMS * n * n
+    emit({"phase": "count_product", "rows": LABEL_SIMS, "n": n, **product,
+          "hub_degree": int(graph.degrees[hub]), "hub_count_max": int(want_hub.max()),
+          "exact": True, "auto": mc_sir.CUDA_AUTO_MATMUL,
+          "bound_ms_int8": ops / 1979e12 * 1e3, "bound_ms_bf16": ops / 989e12 * 1e3})
+    counts = counts_by_route[mc_sir.CUDA_AUTO_MATMUL]
+    del counts_by_route
+    check_sir_step_case("enron_10000x1_trial", i, r, counts, [0.3], [0.1], LABEL_SIMS,
+                        timed=True)
+    check_sir_step_case("enron_2500x4_trials", i, r, counts, [0.2, 0.5, 0.1, 0.3],
+                        [0.1, 0.2, 0.3, 0.05], LABEL_SIMS // 4, timed=True)
+    del i, r, counts
+
+    # the chunk the label path dispatches: its trials' rates and seeds, all
+    # their simulations in one launch, counts from the route `auto` takes
+    k = len(chunk_trials)
+    i, r = _random_state(k * LABEL_SIMS, n, 0.05, dev, SEED + 1)
+    a = mc_sir.device_adjacency(graph, mc_sir.CUDA_AUTO_MATMUL, dev)
+    counts = mc_sir.count_product(i, a)
+    main = check_sir_step_case(
+        f"enron_{LABEL_SIMS}x{k}_trials_label_chunk", i, r, counts,
+        [t[1] for t in chunk_trials], [t[2] for t in chunk_trials], LABEL_SIMS,
+        seed_list=[1000 + j for j in range(k)], timed=True)
+    main["count_product_ms"] = time_ms(lambda: mc_sir.count_product(i, a), 3, warmup=1)
+    del i, r, counts
+    torch.cuda.empty_cache()
     return main
 
 
@@ -263,6 +509,205 @@ def phase_serve(graph) -> dict:
     return row
 
 
+def label_trials(graph):
+    rng = np.random.default_rng([SEED, 2])
+    nodes = [sorted(rng.choice(graph.n_nodes, 3, replace=False).tolist())
+             for _ in range(LABEL_TRIALS)]
+    beta = rng.uniform(0.1, 0.5, LABEL_TRIALS).round(4)
+    gamma = rng.uniform(0.05, 0.3, LABEL_TRIALS).round(4)
+    return [(nodes[k], float(beta[k]), float(gamma[k])) for k in range(LABEL_TRIALS)]
+
+
+def label_chunk(graph) -> int:
+    """Trials per dispatch of the label path on this card, as
+    ``simulate_sir_counts_many`` chooses them."""
+    torch.cuda.empty_cache()
+    return mc_sir.balanced_chunk(
+        LABEL_TRIALS, mc_sir.auto_trials_chunk(graph.n_nodes, LABEL_SIMS, torch.device("cuda")))
+
+
+def phase_labels(graph, trials, save_dir, compared_chunk) -> dict:
+    """Monte-Carlo labels of the six trials, as the worker extracts them
+    (trial k under seed 1000 + k), into ``save_dir``. ``compared_chunk``: the
+    trials per launch at which K2 was held against its plain version."""
+    dev = torch.device("cuda")
+    kw = dict(sim=LABEL_SIMS, max_time=MAX_TIME, save_dir=save_dir,
+              seeds=[1000 + k for k in range(LABEL_TRIALS)], device=dev)
+    chunk = label_chunk(graph)
+    if chunk != compared_chunk:
+        raise AssertionError(
+            f"the label path dispatches {chunk} trials a launch; K2 was compared at "
+            f"{compared_chunk}")
+    chunks = -(-LABEL_TRIALS // chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sir_step.launches = 0  # the label path starts here
+    t0 = time.perf_counter()
+    triples = load_or_extract_labels_many(graph, trials, **kw)
+    seconds = time.perf_counter() - t0
+    launches = sir_step.launches  # and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != (MAX_TIME - 1) * chunks:
+        raise AssertionError(
+            f"K2 launches {launches}: expected {MAX_TIME - 1} per chunk over {chunks} chunks")
+    final_r = []
+    for (nodes, _, _), (s, i, r) in zip(trials, triples):
+        if s.shape != (MAX_TIME, graph.n_nodes) or s.dtype != np.float64:
+            raise AssertionError(f"label array {s.shape} {s.dtype}")
+        if np.abs(s + i + r - 1.0).max() > 1e-6:
+            raise AssertionError("S + I + R != 1 in the labels")
+        if (np.diff(r, axis=0) < 0).any():
+            raise AssertionError("recovered probability decreases in time")
+        if not (i[0, nodes] == 1.0).all() or i[0].sum() != len(nodes):
+            raise AssertionError("seed nodes are not the infected set at t = 0")
+        final_r.append(float(r[-1].mean()))
+    if max(final_r) <= 1e-3:
+        raise AssertionError("no epidemic spread in any trial")
+    sir_step.launches = 0
+    t0 = time.perf_counter()
+    again = load_or_extract_labels_many(graph, trials, **kw)
+    cache_s = time.perf_counter() - t0
+    if sir_step.launches != 0 or not all(
+            np.array_equal(a[1], b[1]) for a, b in zip(again, triples)):
+        raise AssertionError("the second call was not a pure cache hit")
+    row = {"phase": "labels", "trials": LABEL_TRIALS, "sims": LABEL_SIMS,
+           "max_time": MAX_TIME, "n": graph.n_nodes, "seconds": seconds,
+           "sims_per_s": LABEL_TRIALS * LABEL_SIMS / seconds, "trial_chunks": chunks,
+           "rows_per_launch": chunk * LABEL_SIMS,
+           "k2_launches": launches, "count_product": mc_sir.CUDA_AUTO_MATMUL,
+           "peak_memory_gb": peak_gb, "final_recovered_mean": final_r,
+           "cache_hit_s": cache_s, "ok": True}
+    emit(row)
+    return row
+
+
+def _loss_and_grads(model, params, adj, data, device):
+    """Loss of trial 0 as one minibatch, and its gradient per leaf."""
+    params = {k: {kk: t.detach().to(device).requires_grad_(True) for kk, t in v.items()}
+              for k, v in params.items()}
+    first = lambda a: torch.as_tensor(a[:1], device=device)
+    pred = model.predict(params, adj, first(data.s0), first(data.i0), first(data.r0),
+                         first(data.beta), first(data.gamma))
+    loss = l1_sir_loss(pred, first(data.labels), trial_weight=torch.ones(1, device=device))
+    loss.backward()
+    return float(loss.detach()), {f"{k}/{kk}": leaf.grad.cpu() for k, v in params.items()
+                         for kk, leaf in v.items()}, params
+
+
+def phase_train(graph, trials, save_dir) -> dict:
+    """``cli.worker.main`` on the six trials (labels cached by the labels
+    phase), then one training step on the card against the CPU."""
+    argv = ["--model", "ode_nn", "--hidden", "64", "--method", "euler", "--deltaT", "0.5",
+            "--maxTime", str(MAX_TIME), "--batch_size", "1", "--lr", "1e-4",
+            "--epochs", str(TRAIN_EPOCHS), "--sim", str(LABEL_SIMS), "--spmm", "auto",
+            "--save_checkpoint", "--dataset", graph.name, "--path_to_save", save_dir,
+            "--I_indices", *[str(t[0]) for t in trials],
+            "--beta", *[str(t[1]) for t in trials], "--gamma", *[str(t[2]) for t in trials]]
+    args = worker.build_parser().parse_args([*argv, "--device", "cuda"])
+    model, _ = worker.build_model_and_adj(args, graph)
+    n_train, n_val = 3, 1  # 0.6 / 0.2 / 0.2 of six trials, int-floor boundaries
+    fwd_per_batch = EULER_STEPS * (2 if model.adjoint == "checkpoint" else 1)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spmm2.launches = spmm2.backward_launches = sir_step.launches = 0  # the path starts here
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = worker.main([*argv, "--device", "cuda"], graph=graph)
+    seconds = time.perf_counter() - t0
+    total, backward, k2 = spmm2.launches, spmm2.backward_launches, sir_step.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0 or k2 != 0:
+        raise AssertionError(f"worker.main returned {rc}; K2 launches {k2} (labels were cached)")
+    hist = [(float(a), float(b), float(c)) for a, b, c in re.findall(
+        r"Train Loss: ([0-9.eE+-]+|nan|inf), Val Loss: ([0-9.eE+-]+|nan|inf) \(([0-9.]+)s\)",
+        out.getvalue())]
+    if len(hist) != TRAIN_EPOCHS or not np.isfinite(hist).all():
+        raise AssertionError(f"training history is not {TRAIN_EPOCHS} finite epochs: {hist}")
+    if not hist[1][0] < hist[0][0]:
+        raise AssertionError(f"train loss did not fall: {hist[0][0]} -> {hist[1][0]}")
+    steps = TRAIN_EPOCHS * n_train
+    evals = (total - backward - steps * fwd_per_batch) / EULER_STEPS  # val + test passes
+    if backward != steps * EULER_STEPS or evals not in (TRAIN_EPOCHS + 1, TRAIN_EPOCHS + 2):
+        raise AssertionError(
+            f"K1 launches: {total} in all, {backward} backward; expected {EULER_STEPS} "
+            f"backward and {fwd_per_batch} forward per training minibatch over {steps}, "
+            f"plus {EULER_STEPS} per evaluation pass")
+    with open(os.path.join(save_dir, f"Metrics-trials-{graph.name}"), newline="") as f:
+        rows = list(csv.reader(f))
+    if rows[0] != TRIAL_COLUMNS or len(rows) != 2 or len(rows[1]) != len(TRIAL_COLUMNS):
+        raise AssertionError(f"CSV is not one row of the {len(TRIAL_COLUMNS)} columns")
+    test_loss = float(rows[1][TRIAL_COLUMNS.index("test_loss")])
+    if not 0.0 < test_loss < 1.0:
+        raise AssertionError(f"test_loss {test_loss} in the CSV")
+
+    # the saved checkpoint serves
+    ckpt = worker.checkpoint_dir_for(save_dir, args.trial, args.model)
+    trained = infer.restore_params(ckpt, device="cuda")
+    infer.check_params_match(model, trained)
+    _, adj = worker.build_model_and_adj(args, graph, batch_size=2)
+    sb = infer.scenario_batch(graph.n_nodes, [t[0] for t in trials[:2]],
+                              [t[1] for t in trials[:2]], [t[2] for t in trials[:2]])
+    served = infer.predict_summaries(model, trained, adj, *sb)
+    if len(served) != 2 or not all(np.isfinite(list(r.values())).all() for r in served):
+        raise AssertionError("the trained checkpoint did not score")
+
+    # one training step from the same params: card (kernels) against CPU (plain)
+    triples = load_or_extract_labels_many(
+        graph, trials[:1], sim=LABEL_SIMS, max_time=MAX_TIME, save_dir=save_dir, device="cuda")
+    data = build_trial_data(graph.n_nodes, [trials[0][0]], [trials[0][1]], [trials[0][2]],
+                            triples)
+    params = model.init(torch.Generator().manual_seed(SEED), device="cpu")
+    args_cpu = worker.build_parser().parse_args([*argv, "--device", "cpu"])
+    model_cpu, adj_cpu = worker.build_model_and_adj(args_cpu, graph)
+    _, adj1 = worker.build_model_and_adj(args, graph)
+    loss_gpu, grads_gpu, leaves = _loss_and_grads(model, params, adj1, data, "cuda")
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu, _ = _loss_and_grads(model_cpu, params, adj_cpu, data, "cpu")
+    cpu_s = time.perf_counter() - t0
+    top = max(float(g.abs().max()) for g in grads_cpu.values())
+    # a leaf whose gradient is rounding noise (dec2/b shifts all three logits,
+    # which the softmax ignores) is held to the scale of the largest leaf
+    rel = {k: float((grads_gpu[k] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * top)
+           for k, g in grads_cpu.items()}
+    if abs(loss_gpu - loss_cpu) > STEP_LOSS_ATOL or max(rel.values()) > STEP_GRAD_RTOL:
+        raise AssertionError(
+            f"one step, card vs CPU: loss {loss_gpu} vs {loss_cpu}, gradient leaves {rel}")
+
+    # time of one training step at batch 1 (forward, backward, Adam), warm
+    opt = torch.optim.Adam([leaf for v in leaves.values() for leaf in v.values()], lr=1e-4)
+    first = lambda a: torch.as_tensor(a[:1], device="cuda")
+    xs = tuple(first(a) for a in (data.s0, data.i0, data.r0, data.beta, data.gamma))
+    labels, ones = first(data.labels), torch.ones(1, device="cuda")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        l1_sir_loss(model.predict(leaves, adj1, *xs), labels, trial_weight=ones).backward()
+        opt.step()
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+
+    row = {"phase": "train", "n": graph.n_nodes, "hidden": 64, "batch_size": 1,
+           "epochs": TRAIN_EPOCHS, "adjoint": model.adjoint, "trials": "3 train, 1 val, 2 test",
+           "seconds": seconds, "history": hist, "test_loss": test_loss,
+           "k1_launches": total, "k1_backward_launches": backward,
+           "k1_forward_per_minibatch": fwd_per_batch, "k1_backward_per_minibatch": EULER_STEPS,
+           "evaluation_passes": int(evals), "peak_memory_gb": peak_gb,
+           "step_ms": step_ms, "step_loss_card": loss_gpu, "step_loss_cpu": loss_cpu,
+           "step_grad_rel_err": rel, "cpu_step_s": cpu_s,
+           "tol": f"loss {STEP_LOSS_ATOL}, gradient leaves {STEP_GRAD_RTOL} (max-norm)",
+           "served_scenarios": len(served), "ok": True}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -275,16 +720,28 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     graph = powerlaw_graph(ENRON_NODES, ENRON_DIRECTED_EDGES, SEED)
+    trials = label_trials(graph)
+    chunk = label_chunk(graph)
     k1 = phase_kernel(graph)
+    k2 = phase_kernel_k2(graph, trials[:chunk])
+    k1b = phase_kernel_bwd(graph)
     serve = phase_serve(graph)
-    emit({"kernels": [{
-        "name": "spmm2", "route": "cuda",
-        "source": "gn_ode_sir_tpu_torch/csrc/spmm2.cu",
-        "replaces": "gn_ode_sir_tpu/ops/pallas_spmm2.py:119",
-        "launches": serve["k1_launches"], "max_abs_err": k1["max_abs_err"],
-        "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"]}]})
+    with tempfile.TemporaryDirectory() as save_dir:
+        labels = phase_labels(graph, trials, save_dir, chunk)
+        train = phase_train(graph, trials, save_dir)
+    kernel = lambda name, source, replaces, launches, row: {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "case": row["case"], "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+    emit({"kernels": [
+        kernel("spmm2", "gn_ode_sir_tpu_torch/csrc/spmm2.cu",
+               "gn_ode_sir_tpu/ops/pallas_spmm2.py:119",
+               serve["k1_launches"] + train["k1_launches"] - train["k1_backward_launches"], k1),
+        kernel("spmm2_bwd", "gn_ode_sir_tpu_torch/csrc/spmm2.cu",
+               "gn_ode_sir_tpu/ops/pallas_spmm2.py:239", train["k1_backward_launches"], k1b),
+        kernel("sir_step", "gn_ode_sir_tpu_torch/csrc/sir_step.cu",
+               "gn_ode_sir_tpu/sim/pallas_step.py:36", labels["k2_launches"], k2)]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

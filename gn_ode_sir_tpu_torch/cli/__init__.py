@@ -1,4 +1,4 @@
-"""CLI layer: the worker's model construction and the serving entry point.
+"""CLI layer: the experiment worker and the serving entry point.
 
 As in the JAX package, the CLI (not the library) owns the dataset-root
 default: relative reference-style dataset paths ('./real_graphs/karate')

@@ -30,10 +30,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_U = ctypes.c_uint
 # kernel name -> (source file, C symbol, argtypes); restype is int (cudaError_t)
 KERNELS = {
     "spmm2": ("spmm2.cu", "gnode_spmm2_csr",
               [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "sir_step": ("sir_step.cu", "gnode_sir_step",
+                 [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _U, _P]),
 }
 
 _FUNCS: dict[str, ctypes._CFuncPtr] = {}

@@ -18,9 +18,17 @@ E = 361k directed edges): ~20 MB moved (x and out 8.6 MB each, src and w
 Beside the kernel: :func:`spmm2_plain`, the same function as a gather and an
 ``index_add_`` with the same bf16 rounding. :func:`spmm2` takes the plain
 version only for a CPU tensor; a CUDA tensor launches the kernel or raises.
-``spmm2.launches`` counts kernel launches. No autograd: serving runs under
-``torch.inference_mode``; the gradient (the same kernel on the transpose
-CSR) comes with training.
+``spmm2.launches`` counts kernel launches, forward and backward.
+
+The gradient (K1-bwd, ``gn_ode_sir_tpu/ops/pallas_spmm2.py::_spmm2_diff_bwd``)
+is the same kernel on the transpose CSR: ``dx[s] = sum_{src[e]=s} w[e] *
+g[dst[e]]``, with the cotangent and the weights rounded to bf16 in bf16
+mode, as the reference's ``custom_vjp`` rounds them. :class:`Spmm2Adj`
+builds the transpose plan once on the host and routes ``matvec`` through one
+``torch.autograd.Function`` on both devices, so that the CPU path has that
+gradient too (plain autograd through :func:`spmm2_plain` would differentiate
+the bf16 casts instead). ``spmm2.backward_launches`` counts, beside the
+launch, those that a backward pass made.
 """
 
 from __future__ import annotations
@@ -89,7 +97,7 @@ def spmm2_plain(plan: CsrPlan, x: torch.Tensor, precision: str = "f32") -> torch
     return segment_sum(msgs, plan.dst, plan.n_nodes, dim=msgs.dim() - 2)
 
 
-def _launch(plan: CsrPlan, x: torch.Tensor, precision: str) -> torch.Tensor:
+def _launch(plan: CsrPlan, x: torch.Tensor, precision: str, backward: bool) -> torch.Tensor:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"spmm2 kernel takes float32 or bfloat16 x, got {x.dtype}")
     if x.dim() not in (2, 3) or x.shape[-2] != plan.n_nodes:
@@ -113,7 +121,17 @@ def _launch(plan: CsrPlan, x: torch.Tensor, precision: str) -> torch.Tensor:
         if err != 0:
             raise RuntimeError(f"spmm2 kernel launch failed: cudaError_t {err}")
         spmm2.launches += 1
+        spmm2.backward_launches += int(backward)
     return out if x.dim() == 3 else out[0]
+
+
+def _apply(plan: CsrPlan, x: torch.Tensor, precision: str, backward: bool) -> torch.Tensor:
+    _check_precision(precision)
+    if x.device.type == "cuda":
+        return _launch(plan, x, precision, backward)
+    if x.device.type == "cpu":
+        return spmm2_plain(plan, x, precision)
+    raise ValueError(f"spmm2 runs on cuda or cpu tensors, got {x.device}")
 
 
 def spmm2(plan: CsrPlan, x: torch.Tensor, precision: str = "f32") -> torch.Tensor:
@@ -121,34 +139,51 @@ def spmm2(plan: CsrPlan, x: torch.Tensor, precision: str = "f32") -> torch.Tenso
 
     A CUDA ``x`` launches the kernel (or raises); a CPU ``x`` takes
     :func:`spmm2_plain`. Returns float32 [n, h] or [B, n, h]."""
-    _check_precision(precision)
-    if x.device.type == "cuda":
-        return _launch(plan, x, precision)
-    if x.device.type == "cpu":
-        return spmm2_plain(plan, x, precision)
-    raise ValueError(f"spmm2 runs on cuda or cpu tensors, got {x.device}")
+    return _apply(plan, x, precision, backward=False)
 
 
 spmm2.launches = 0  # kernel launches since the last reset (CPU calls do not count)
+spmm2.backward_launches = 0  # those of them made by backward passes
+
+
+class _Spmm2Function(torch.autograd.Function):
+    """``spmm2`` with K1-bwd as its gradient; none flows to the plans."""
+
+    @staticmethod
+    def forward(ctx, x, plan, plan_t, precision):
+        ctx.plan_t, ctx.precision, ctx.x_dtype = plan_t, precision, x.dtype
+        return spmm2(plan, x, precision)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = _apply(ctx.plan_t, g.contiguous(), ctx.precision, backward=True)
+        return dx.to(ctx.x_dtype), None, None, None
 
 
 @dataclasses.dataclass(frozen=True)
 class Spmm2Adj:
     """Adjacency backed by K1, the port of ``Pallas2Adj``: ``matvec`` on
-    x [B, n, h] returns the float32 A·x."""
+    x [B, n, h] returns the float32 A·x and is differentiable in x.
+    ``plan_t`` is the transpose plan (edges sorted by src, roles swapped)."""
 
     plan: CsrPlan
+    plan_t: CsrPlan
     precision: str = "f32"
 
     @staticmethod
     def from_graph(graph, w=None, *, precision: str = "f32", device) -> "Spmm2Adj":
         _check_precision(precision)
-        return Spmm2Adj(CsrPlan.build(graph.src, graph.dst, graph.n_nodes, w=w,
-                                      device=device), precision)
+        src, dst = np.asarray(graph.src), np.asarray(graph.dst)
+        w = np.ones(src.shape, np.float32) if w is None else np.asarray(w, np.float32)
+        order = np.argsort(src, kind="stable")
+        return Spmm2Adj(
+            CsrPlan.build(src, dst, graph.n_nodes, w=w, device=device),
+            CsrPlan.build(dst[order], src[order], graph.n_nodes, w=w[order], device=device),
+            precision)
 
     @property
     def n_nodes(self) -> int:
         return self.plan.n_nodes
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return spmm2(self.plan, x, self.precision)
+        return _Spmm2Function.apply(x, self.plan, self.plan_t, self.precision)

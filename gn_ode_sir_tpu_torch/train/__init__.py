@@ -1,5 +1,6 @@
-"""Training layer (port of ``gn_ode_sir_tpu.train``): so far only the params
-checkpoint that serving reads."""
+"""Training layer (port of ``gn_ode_sir_tpu.train``): loss, trial datasets,
+the training loop and the params checkpoint. Ensemble, multigraph and
+node-split training are not ported yet (ROADMAP.md Queue 1)."""
 
 from gn_ode_sir_tpu_torch.train.checkpoint import (
     params_from_numpy,
@@ -7,5 +8,37 @@ from gn_ode_sir_tpu_torch.train.checkpoint import (
     restore_params,
     save_params,
 )
+from gn_ode_sir_tpu_torch.train.data import (
+    TrialData,
+    build_trial_data,
+    make_out_of_dist_split,
+    out_of_dist_split,
+    split_indices,
+)
+from gn_ode_sir_tpu_torch.train.loop import (
+    FitResult,
+    fit,
+    make_eval_fn,
+    make_eval_per_trial_fn,
+    make_train_epoch_fn,
+)
+from gn_ode_sir_tpu_torch.train.loss import l1_sir_loss, masked_l1
 
-__all__ = ["params_from_numpy", "params_to_numpy", "restore_params", "save_params"]
+__all__ = [
+    "l1_sir_loss",
+    "masked_l1",
+    "TrialData",
+    "build_trial_data",
+    "split_indices",
+    "out_of_dist_split",
+    "make_out_of_dist_split",
+    "FitResult",
+    "fit",
+    "make_eval_fn",
+    "make_eval_per_trial_fn",
+    "make_train_epoch_fn",
+    "params_from_numpy",
+    "params_to_numpy",
+    "restore_params",
+    "save_params",
+]

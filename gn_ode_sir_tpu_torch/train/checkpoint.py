@@ -16,9 +16,9 @@ import numpy as np
 import torch
 
 
-def _map(fn, tree):
+def tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
 
 
@@ -30,22 +30,22 @@ def save_params(directory: str, params: dict, name: str = "serve") -> str:
     """Write ``params`` (moved to the CPU) to ``<directory>/<name>.pt``."""
     os.makedirs(directory, exist_ok=True)
     path = params_path(directory, name)
-    torch.save(_map(lambda t: t.detach().cpu(), params), path)
+    torch.save(tree_map(lambda t: t.detach().cpu(), params), path)
     return path
 
 
 def restore_params(directory: str, name: str = "serve", *, device) -> dict:
     """Load ``<directory>/<name>.pt`` onto ``device``."""
     tree = torch.load(params_path(directory, name), map_location="cpu", weights_only=True)
-    return _map(lambda t: t.to(device), tree)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def params_from_numpy(tree, *, device) -> dict:
     """JAX params with numpy leaves (``tree_map(np.asarray, params)``) -> the
     port's params on ``device``."""
-    return _map(lambda a: torch.tensor(np.asarray(a), device=device), tree)
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device), tree)
 
 
 def params_to_numpy(params) -> dict:
     """The port's params -> numpy leaves, the form the JAX side accepts."""
-    return _map(lambda t: t.detach().cpu().numpy(), params)
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)

@@ -49,6 +49,8 @@ def _kernel_group(name: str) -> str:
     low = name.lower()
     if "spmm2" in low:
         return "K1 spmm2"
+    if "sir_step" in low:
+        return "K2 sir_step"
     if "gemm" in low or "xmma" in low or "cutlass" in low or "matmul" in low:
         return "matmul (cuBLAS)"
     if "memcpy" in low or "memset" in low:
@@ -58,6 +60,40 @@ def _kernel_group(name: str) -> str:
     if "cat" in low or "index" in low or "gather" in low:
         return "copy/index"
     return "elementwise/other"
+
+
+def summarize_profile(prof, wall_us: float) -> dict:
+    """Device time of a ``torch.profiler`` trace by kernel group, the device's
+    busy time (the union of its kernel spans) and idle share of ``wall_us``,
+    K1's share of device time, and the twelve longest kernels."""
+    from torch.autograd import DeviceType
+
+    spans, by_name = [], {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        spans.append((start, end))
+        tot, cnt = by_name.get(evt.name, (0.0, 0))
+        by_name[evt.name] = (tot + (end - start), cnt + 1)
+    busy, last = 0.0, -1.0
+    for start, end in sorted(spans):
+        if end > last:
+            busy += end - max(start, last)
+            last = end
+    groups = {}
+    for name, (tot, _) in by_name.items():
+        groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + tot
+    device_total = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3 if spans else "not measured",
+            "device_idle_share": 1 - busy / wall_us if spans else "not measured",
+            "device_ms_by_group": {k: v / 1e3 for k, v in sorted(groups.items())},
+            "k1_share_of_device_time": (groups.get("K1 spmm2", 0.0) / device_total
+                                        if device_total else "not measured"),
+            "top_kernels": [{"name": n[:90], "ms": t / 1e3, "count": c}
+                            for n, (t, c) in top]}
 
 
 def main(argv=None) -> int:
@@ -100,7 +136,6 @@ def main(argv=None) -> int:
         records.append(rec)
         print(json.dumps(rec), flush=True)
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -108,33 +143,8 @@ def main(argv=None) -> int:
         for _ in range(3):
             infer.predict_summaries(model, params, adj, *sb)
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        start, end = evt.time_range.start, evt.time_range.end
-        spans.append((start, end))
-        tot, cnt = by_name.get(evt.name, (0.0, 0))
-        by_name[evt.name] = (tot + (end - start), cnt + 1)
-    busy, last = 0.0, -1.0
-    for start, end in sorted(spans):
-        if end > last:
-            busy += end - max(start, last)
-            last = end
-    groups = {}
-    for name, (tot, _) in by_name.items():
-        groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + tot
-    device_total = sum(t for t, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     rec = {"profile_batch": args.batches[-1], "profiled_dispatches": 3,
-           "wall_ms": wall_us / 1e3,
-           "device_busy_ms": busy / 1e3 if spans else "not measured",
-           "device_idle_share": 1 - busy / wall_us if spans else "not measured",
-           "device_ms_by_group": {k: v / 1e3 for k, v in sorted(groups.items())},
-           "k1_share_of_device_time": (groups.get("K1 spmm2", 0.0) / device_total
-                                       if device_total else "not measured"),
-           "top_kernels": [{"name": n[:90], "ms": t / 1e3, "count": c}
-                           for n, (t, c) in top]}
+           **summarize_profile(prof, wall_us)}
     records.append(rec)
     print(json.dumps(rec), flush=True)
     if args.out:

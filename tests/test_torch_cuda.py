@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: each kernel against its plain version,
-and the serving path on the card against the same path on the CPU.
+"""The port's CUDA kernels on the card: each kernel (K1, K1's gradient, K2)
+against its plain version, and the serving path and the simulator on the card
+against the same paths on the CPU.
 
 Every test here is marked ``cuda`` and skips where no card is visible. The
 file imports neither JAX nor networkx (the machine with the card has
@@ -15,7 +16,9 @@ import torch
 from gn_ode_sir_tpu_torch.graphs.graph import graph_from_edges
 from gn_ode_sir_tpu_torch.models.gnode import GNODE
 from gn_ode_sir_tpu_torch.ops.adjacency import adjacency_from_graph
-from gn_ode_sir_tpu_torch.ops.spmm2 import CsrPlan, spmm2, spmm2_plain
+from gn_ode_sir_tpu_torch.ops.spmm2 import CsrPlan, Spmm2Adj, spmm2, spmm2_plain
+from gn_ode_sir_tpu_torch.sim import mc_sir, simulate_sir_counts, simulate_sir_counts_many
+from gn_ode_sir_tpu_torch.sim.fused_step import philox4x32_words, sir_step, sir_update_plain
 
 torch.set_num_threads(1)
 
@@ -99,3 +102,90 @@ def test_gnode_predict_on_card_matches_cpu(cuda_device, kind):
             outs.append(model.predict(p, adjacency_from_graph(g, kind=kind, device=dev),
                                       *(torch.as_tensor(a, device=dev) for a in xs)).cpu())
     np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(), atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_spmm2_gradient_kernel_matches_plain(cuda_device, precision):
+    """K1-bwd: the gradient through the autograd Function is K1 on the
+    transpose plan — against autograd through the plain version (f32) or the
+    plain version on the transpose plan with bf16 messages (bf16). The
+    weights make the transpose differ from the forward plan."""
+    g = _graph()
+    rng = np.random.default_rng(3)
+    w = rng.uniform(0.5, 1.5, g.n_edges).astype(np.float32)
+    adj = Spmm2Adj.from_graph(g, w=w, precision=precision, device=cuda_device)
+    x = torch.as_tensor(rng.standard_normal((3, g.n_nodes, 64)).astype(np.float32),
+                        device=cuda_device).requires_grad_(True)
+    ct = torch.as_tensor(rng.standard_normal((3, g.n_nodes, 64)).astype(np.float32),
+                         device=cuda_device)
+    before = (spmm2.launches, spmm2.backward_launches)
+    (got,) = torch.autograd.grad(adj.matvec(x), x, ct)
+    assert (spmm2.launches - before[0], spmm2.backward_launches - before[1]) == (2, 1)
+    if precision == "f32":
+        (want,) = torch.autograd.grad(spmm2_plain(adj.plan, x), x, ct)
+    else:
+        want = spmm2_plain(adj.plan_t, ct, "bf16")
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    with torch.inference_mode():
+        assert adj.matvec(x.detach()).shape == x.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,sims,counts_dtype", [
+    (1, 34, 1, torch.float32), (7, 33, 7, torch.int32), (9, 35, 3, torch.float32),
+    (64, 1000, 16, torch.int32), (300, 2048, 100, torch.float32)])
+def test_sir_step_kernel_matches_plain(cuda_device, rows, n, sims, counts_dtype):
+    """K2 against its plain version with the same seeds and step: the Philox
+    words are equal and so are the states (the kernel's expm1f and
+    torch.expm1 agree on the card); the launch is counted. Shapes cover a
+    single row, element counts that are not multiples of 4 (per trial and in
+    all), several trials with their own rates, and both count types."""
+    trials = rows // sims
+    gen = torch.Generator().manual_seed(rows)
+    u = torch.rand((rows, n), generator=gen)
+    i, r = (u < 0.2).to(torch.int8), ((u >= 0.2) & (u < 0.35)).to(torch.int8)
+    counts = torch.randint(0, 12, (rows, n), generator=gen, dtype=torch.int32).to(counts_dtype)
+    betas = torch.linspace(0.0, 0.6, trials)
+    lb, g16 = torch.log1p(-betas), torch.linspace(0.0, 1.0, trials) * 65536.0
+    seed_list = [mc_sir.fold_seed(3, j) for j in range(trials)]
+    seeds = torch.tensor(seed_list, dtype=torch.int64)
+    dev = [t.to(cuda_device) for t in (i, r, counts, lb, g16, seeds)]
+    before = sir_step.launches
+    ki, kr, kw = sir_step(*dev, 5, sims=sims, return_words=True)
+    torch.cuda.synchronize()
+    assert sir_step.launches == before + 1
+    words = torch.cat([philox4x32_words(s, 5, sims * n, device="cpu")
+                       for s in seed_list]).reshape(rows, n)
+    assert torch.equal(kw.cpu(), words)
+    per_row = lambda t: t.repeat_interleave(sims)[:, None]
+    pi, pr = sir_update_plain(dev[0], dev[1], dev[2], per_row(dev[3]), per_row(dev[4]),
+                              words.to(cuda_device))
+    assert torch.equal(ki, pi) and torch.equal(kr, pr)
+    assert ki.dtype == torch.int8 and int((ki + kr).max()) <= 1
+    with pytest.raises(TypeError):
+        sir_step(dev[0].float(), dev[1].float(), *dev[2:], 5, sims=sims)
+    if rows > 1:  # a one-row transpose is still contiguous
+        with pytest.raises(ValueError, match="contiguous"):
+            sir_step(dev[0].t().contiguous().t(), *dev[1:], 5, sims=sims)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul", ["int8", "bf16", "auto"])
+def test_simulator_on_card_matches_cpu(cuda_device, matmul):
+    """The simulator on the card (count product by either exact route, K2)
+    gives the CPU path's sums (float32 product, plain K2) bit for bit; a
+    node count that is not a multiple of 8 and a hub above 256 neighbours
+    exercise the int8 padding and the exactness of both routes."""
+    hub = np.stack([np.zeros(299, np.int64), np.arange(1, 300)], axis=1)
+    g = graph_from_edges(301, np.concatenate([hub, np.array([[5, 9], [300, 7]])]), name="hub")
+    trials = [([1, 2, 3], 0.35, 0.1), ([0], 0.2, 0.3)]
+    kw = dict(sims=64, max_time=6, seeds=[11, 12], matmul=matmul)
+    want = simulate_sir_counts_many(g, trials, device="cpu", **kw)
+    got = simulate_sir_counts_many(g, trials, device=cuda_device, **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    few = simulate_sir_counts(g, [0], 0.2, 0.3, sims=8, max_time=4, seed=12, matmul=matmul,
+                              device=cuda_device)  # fewer rows than _int_mm takes
+    np.testing.assert_array_equal(
+        few, simulate_sir_counts(g, [0], 0.2, 0.3, sims=8, max_time=4, seed=12, device="cpu"))

@@ -1,6 +1,7 @@
-"""The port stands alone: importing every module of gn_ode_sir_tpu_torch and
-chip_smoke.py pulls in no JAX, nothing of gn_ode_sir_tpu, and no networkx
-(absent on the machine with the card); and chip_smoke.py refuses to run,
+"""The port stands alone: importing every module of gn_ode_sir_tpu_torch,
+chip_smoke.py and the port's profiling scripts pulls in no JAX, nothing of
+gn_ode_sir_tpu, and no networkx or pandas (absent on the machine with the
+card); and chip_smoke.py refuses to run,
 printing no result, without a card or without the rest of the repository.
 """
 
@@ -24,6 +25,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+sys.path.insert(0, "scripts")
+import torch_serve_profile, torch_train_profile
 print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
 """
 
@@ -44,12 +47,16 @@ def probe():
 def test_every_module_imports(probe):
     expected = {"gn_ode_sir_tpu_torch.cli.infer", "gn_ode_sir_tpu_torch.cli.worker",
                 "gn_ode_sir_tpu_torch.ops.spmm2", "gn_ode_sir_tpu_torch.ops._kernels",
-                "gn_ode_sir_tpu_torch.models.gnode", "gn_ode_sir_tpu_torch.train.checkpoint"}
+                "gn_ode_sir_tpu_torch.models.gnode", "gn_ode_sir_tpu_torch.train.checkpoint",
+                "gn_ode_sir_tpu_torch.sim.fused_step", "gn_ode_sir_tpu_torch.sim.mc_sir",
+                "gn_ode_sir_tpu_torch.utils.labels", "gn_ode_sir_tpu_torch.utils.csvsink",
+                "gn_ode_sir_tpu_torch.utils.config", "gn_ode_sir_tpu_torch.train.loss",
+                "gn_ode_sir_tpu_torch.train.data", "gn_ode_sir_tpu_torch.train.loop"}
     assert expected <= set(probe["modules"])
 
 
 @pytest.mark.parametrize("forbidden", ["jax", "jaxlib", "gn_ode_sir_tpu", "optax",
-                                       "orbax", "networkx", "triton"])
+                                       "orbax", "networkx", "pandas", "triton"])
 def test_no_forbidden_module_loaded(probe, forbidden):
     bad = [m for m in probe["loaded"] if m == forbidden or m.startswith(forbidden + ".")]
     assert not bad, f"importing the port loaded {bad[:5]}"

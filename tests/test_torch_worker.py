@@ -1,0 +1,162 @@
+"""Port parity: the experiment worker (gn_ode_sir_tpu_torch.cli.worker) end to
+end on the CPU with ``--dataset none`` against the JAX worker: the CSV header
+and row layout, the ``initial-*.pkl`` contents, the two out-of-dist CSVs, the
+saved checkpoint served through ``cli.infer``, and the flags that are not
+ported yet. Labels come from different random streams in the two packages,
+so trained losses are compared for layout and type, not value."""
+
+import csv
+import json
+import os
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+from gn_ode_sir_tpu.cli import worker as jax_worker
+from gn_ode_sir_tpu_torch.cli import infer, worker
+from gn_ode_sir_tpu_torch.graphs.graph import graph_from_edges
+from gn_ode_sir_tpu_torch.utils.config import ExperimentConfig
+from gn_ode_sir_tpu_torch.utils.csvsink import TRIAL_COLUMNS, csv_trials
+
+torch.set_num_threads(1)
+
+SEEDS = ["[1, 2]", "[3]", "[4, 5]", "[6]", "[7, 8]", "[9]", "[10, 11]", "[12]"]
+BETA = ["0.2", "0.3", "0.4", "0.25", "0.35", "0.45", "0.15", "0.5"]
+GAMMA = ["0.1", "0.2", "0.3", "0.15", "0.25", "0.35", "0.4", "0.05"]
+
+
+def _argv(path, *extra):
+    return ["--dataset", "none", "--model", "ode_nn", "--epochs", "2", "--hidden", "8",
+            "--maxTime", "5", "--sim", "100", "--batch_size", "2", "--lr", "1e-3",
+            "--I_indices", *SEEDS, "--beta", *BETA, "--gamma", *GAMMA,
+            "--path_to_save", str(path), "--trial", "3", *extra]
+
+
+def _read_csv(path):
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+@pytest.fixture
+def no_jax_side_effects(monkeypatch):
+    monkeypatch.setenv("GN_JAX_CACHE", "0")  # no compile cache outside tmp_path
+
+
+def test_worker_csv_and_pickles_match_the_jax_worker(tmp_path, no_jax_side_effects):
+    jd, td = tmp_path / "jax", tmp_path / "torch"
+    assert jax_worker.main(_argv(jd, "--auto_checkpoint", "0")) == 0
+    assert worker.main(_argv(td, "--device", "cpu")) == 0
+    jrows = _read_csv(jd / "Metrics-trials-gnp50")
+    trows = _read_csv(td / "Metrics-trials-gnp50")
+    assert trows[0] == jrows[0] == TRIAL_COLUMNS and len(TRIAL_COLUMNS) == 18
+    assert len(trows) == len(jrows) == 2 and len(trows[1]) == len(jrows[1]) == 18
+    assert trows[1][:12] == jrows[1][:12]  # the run's configuration columns
+    assert trows[1][0] == "3" and trows[1][10] == "[2, 8]"
+    for col in range(12, 18):  # best_epoch, losses, times: numbers in both
+        float(trows[1][col]), float(jrows[1][col])
+    assert 0 <= int(trows[1][12]) < 2 and 0 < float(trows[1][14]) < 1
+    assert trows[1][15] == jrows[1][15] == "0.0" and trows[1][17] == "0.0"
+    for name in ("initial-seed.pkl", "initial-beta.pkl", "initial-gamma.pkl"):
+        with open(jd / name, "rb") as a, open(td / name, "rb") as b:
+            assert pickle.load(a) == pickle.load(b)
+    # the same label file names (contents differ: other random streams)
+    pk = lambda d: sorted(f for f in os.listdir(d) if f.startswith("gnp50-"))
+    assert pk(td) == pk(jd) and len(pk(td)) == 24
+    # a second port run appends a row and simulates nothing
+    mtime = os.path.getmtime(td / pk(td)[0])
+    assert worker.main(_argv(td, "--device", "cpu", "--init_seed", "4")) == 0
+    assert len(_read_csv(td / "Metrics-trials-gnp50")) == 3
+    assert os.path.getmtime(td / pk(td)[0]) == mtime
+
+
+def test_worker_out_of_dist_writes_its_two_csvs(tmp_path, no_jax_side_effects):
+    jd, td = tmp_path / "jax", tmp_path / "torch"
+    assert jax_worker.main(_argv(jd, "--out_of_dist", "--auto_checkpoint", "0")) == 0
+    assert worker.main(_argv(td, "--out_of_dist", "--device", "cpu")) == 0
+    for name in ("Out-of-dist-gamma-gnp50", "Out-of-dist-gamma-trials-gnp50"):
+        jrows, trows = _read_csv(jd / name), _read_csv(td / name)
+        assert trows[0] == jrows[0] and len(trows) == 2
+        assert len(trows[1]) == len(jrows[1]) == len(trows[0])
+    per_trial = _read_csv(td / "Out-of-dist-gamma-gnp50")
+    assert all(0 < float(x) < 1 for x in per_trial[1])
+    summary = _read_csv(td / "Out-of-dist-gamma-trials-gnp50")
+    assert summary[1][:7] == _read_csv(jd / "Out-of-dist-gamma-trials-gnp50")[1][:7]
+    assert not os.path.exists(td / "Metrics-trials-gnp50")
+    with open(jd / "out-of-dist-gamma.pkl", "rb") as a, \
+            open(td / "out-of-dist-gamma.pkl", "rb") as b:
+        dj, dt = pickle.load(a), pickle.load(b)
+    assert dt["train"] == dj["train"] and dt["test"] == dj["test"]
+
+
+def test_saved_checkpoint_serves_through_cli_infer(tmp_path):
+    assert worker.main(_argv(tmp_path, "--device", "cpu", "--save_checkpoint")) == 0
+    ckpt = worker.checkpoint_dir_for(str(tmp_path), 3, "ode_nn")
+    assert os.path.isfile(os.path.join(ckpt, "serve.pt"))
+    out = tmp_path / "p.npz"
+    rc = infer.main(["--device", "cpu", "--ckpt", ckpt, "--dataset", "none", "--hidden", "8",
+                     "--maxTime", "5", "--I_indices", "[2, 5]", "[7]", "--beta", "0.3", "0.2",
+                     "--gamma", "0.1", "0.4", "--out", str(out)])
+    assert rc == 0
+    z = np.load(out, allow_pickle=True)
+    assert z["I"].shape == (2, 5, 50)
+    np.testing.assert_allclose(z["S"] + z["I"] + z["R"], 1.0, atol=1e-5)
+
+
+def test_worker_takes_a_graph_and_a_config_file(tmp_path):
+    """``main(argv, graph)`` runs on a handed-in graph (no networkx), and
+    ``--config`` fields become flag defaults that explicit flags override."""
+    g = graph_from_edges(12, [(k, (k + 1) % 12) for k in range(12)] + [(0, 6)], name="ring")
+    cfg = ExperimentConfig(
+        model="ode_nn", hidden=4, lr=1e-3, epochs=1, batch_size=2, delta_t=0.5, max_time=4,
+        sim=50, dataset="unused", path_to_save=str(tmp_path),
+        i_indices=[[1], [2, 3], [4], [5], [6]], beta=[0.2] * 5, gamma=[0.1] * 5)
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(cfg.to_json())
+    assert ExperimentConfig.from_json(cfg.to_json()).i_indices == [[1], [2, 3], [4], [5], [6]]
+    assert worker.main(["--config", str(cfg_path), "--device", "cpu", "--epochs", "2"],
+                       graph=g) == 0
+    rows = _read_csv(tmp_path / "Metrics-trials-ring")
+    assert rows[1][3] == "2" and rows[1][11] == "4" and rows[1][10] == "[1, 5]"
+    assert os.path.exists(tmp_path / "ring-S-2-3-b0.2-g0.1.pkl")
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--ensemble", "2"], "train/ensemble.py"),
+    (["--node_split"], "train/node_split.py"),
+    (["--model", "dmp"], "models/dmp.py"),
+    (["--model", "rk"], "sim/classical.py"),
+    (["--rk_baseline"], "sim/classical.py"),
+    (["--resume"], "resume in fit"),
+    (["--checkpoint_every", "5"], "resume in fit"),
+    (["--die_at_epoch", "1"], "resume in fit"),
+    (["--auto_checkpoint", "0"], "resume in fit"),
+    (["--dataset", "karate+dolphins"], "train/multigraph.py"),
+    (["--model", "GCN"], "models/gcn.py"),
+])
+def test_unported_flags_raise_naming_their_item(tmp_path, extra, item):
+    with pytest.raises(NotImplementedError, match=item):
+        worker.main(_argv(tmp_path, "--device", "cpu", *extra))
+
+
+def test_worker_refuses_misaligned_trials_and_missing_card(tmp_path):
+    argv = _argv(tmp_path, "--device", "cpu")
+    argv[argv.index("--beta") + 1:argv.index("--gamma")] = ["0.2"]
+    with pytest.raises(SystemExit, match="must align"):
+        worker.main(argv)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cuda"):
+            worker.main(_argv(tmp_path))  # the default device is the card
+
+
+def test_csv_sink_prints_the_table_without_pandas(tmp_path, capsys):
+    path = str(tmp_path / "sub" / "Metrics")
+    csv_trials(path, ["a", "bb"], [1, "x,y"])
+    csv_trials(path, ["a", "bb"], [22, 0.5], print_table=True)
+    out = capsys.readouterr().out.splitlines()
+    assert out[-3].split() == ["a", "bb"] and out[-1].split() == ["22", "0.5"]
+    assert _read_csv(path) == [["a", "bb"], ["1", "x,y"], ["22", "0.5"]]
+    csv_trials(path, ["a", "bb"], [3, 4], print_table=False)
+    assert capsys.readouterr().out == ""
+    assert json.loads(ExperimentConfig().to_json())["coins"] == "auto"
