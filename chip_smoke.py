@@ -10,11 +10,15 @@ plain PyTorch version. Phases, each printed as one JSON line:
 2. build  — every kernel compiled from ``gn_ode_sir_tpu_torch/csrc``;
 3. kernel — each kernel against its plain version on the card at the main
    paths' shapes and at edge cases, with kernel / plain / library times and
-   the bound: K1 (forward, at serving's batch 8 and training's batch 1), K2
-   (the fused SIR step: one trial, four trials, and the whole chunk of
-   trials the label path puts into one launch, with the count product timed
-   beside it and checked for exactness on the hub), K1-bwd (the gradient
-   through the autograd Function, and the Function's forward);
+   the bound (K1 and the library call also replayed from a CUDA graph, the
+   device's time without the host's): K1 (forward, at serving's batch 8 and
+   16 and training's batch 1; a star graph and its transpose, rows at the
+   plan's segment boundaries, bf16 messages and state, and two launches
+   that must give the same bits), K2 (the fused SIR step: one trial, four
+   trials, and the whole chunk of trials the label path puts into one
+   launch, with the count product timed beside it and checked for exactness
+   on the hub), K1-bwd (the gradient through the autograd Function, and the
+   Function's forward);
 4. serve  — C7 GN-ODE (hidden 64, euler, deltaT 0.5, maxTime 20) with
    seeded random params, scored through ``cli.worker``/``cli.infer``:
    16 summary scenarios in dispatches of 8 and 2 full-trajectory scenarios,
@@ -53,7 +57,8 @@ import torch
 from gn_ode_sir_tpu_torch.cli import infer, worker
 from gn_ode_sir_tpu_torch.graphs.graph import Graph, graph_from_edges
 from gn_ode_sir_tpu_torch.ops import _kernels
-from gn_ode_sir_tpu_torch.ops.spmm2 import CsrPlan, Spmm2Adj, spmm2, spmm2_plain
+from gn_ode_sir_tpu_torch.ops.spmm2 import (SEGMENT_EDGES, CsrPlan, Spmm2Adj, spmm2,
+                                            spmm2_plain)
 from gn_ode_sir_tpu_torch.sim import mc_sir
 from gn_ode_sir_tpu_torch.sim.fused_step import philox4x32_words, sir_step, sir_update_plain
 from gn_ode_sir_tpu_torch.train import build_trial_data, l1_sir_loss
@@ -65,6 +70,7 @@ SEED = 0
 ENRON_NODES = 33_696  # enron's largest connected component
 ENRON_DIRECTED_EDGES = 361_000  # ~enron's directed edge count
 HUB_MIN_DEGREE = 1_000
+STAR_EDGES = 50_000  # one dst row that owns every edge
 SERVE_SCENARIOS = 16
 DISPATCH_BATCH = 8
 EULER_STEPS = 39  # maxTime 20 / deltaT 0.5 = 40 grid points
@@ -104,6 +110,32 @@ def powerlaw_graph(n: int, n_directed: int, seed: int):
     return graph_from_edges(n, pairs, name=f"powerlaw{n}")
 
 
+def transposed(graph: Graph) -> Graph:
+    """The same directed edges with src and dst swapped, sorted by the new dst."""
+    order = np.argsort(graph.src, kind="stable")
+    return Graph(n_nodes=graph.n_nodes, src=graph.dst[order], dst=graph.src[order],
+                 name=graph.name + "_t")
+
+
+def star_graphs():
+    """A star whose row 0 owns all ``STAR_EDGES`` edges, and its transpose
+    (every other row one edge, all from node 0)."""
+    star = Graph(n_nodes=STAR_EDGES + 1, src=np.arange(1, STAR_EDGES + 1),
+                 dst=np.zeros(STAR_EDGES, np.int64), name="star")
+    return star, transposed(star)
+
+
+def boundary_rows_graph() -> Graph:
+    """A directed graph with dst rows of exactly L - 1, L, L + 1, 2L and
+    2L + 1 edges (L the plan's segment length) between short and edgeless
+    rows, from seeded random sources."""
+    el = SEGMENT_EDGES
+    counts = np.array([el - 1, 3, el, 0, el + 1, 1, 2 * el, 0, 2 * el + 1, 5])
+    dst = np.repeat(np.arange(counts.size), counts)
+    src = np.random.default_rng([SEED, 3]).integers(0, counts.size, dst.size)
+    return Graph(n_nodes=counts.size, src=src, dst=dst, name="boundary_rows")
+
+
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
     for _ in range(warmup):
@@ -117,6 +149,23 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_replay_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
+    """Device time of one ``fn()``: ``per_graph`` calls captured in one CUDA
+    graph, the graph replayed, so that the host issues nothing in between.
+    Where one call takes the device less time than the host needs to issue
+    it, :func:`time_ms` reads the host and this reads the device."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    return time_ms(graph.replay, replays) / per_graph
 
 
 def phase_device() -> dict:
@@ -155,13 +204,26 @@ def spmm2_bound(plan, x) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def spmm2_library_ms(plan, x) -> float:
+def spmm2_library_times(plan, x) -> dict:
     """Yardstick only (never called by the port): one CSR sparse product on
-    the node-major [n, B*h] layout of the same values."""
+    the node-major [n, B*h] layout of the same values, timed as K1 is."""
     n = plan.n_nodes
     a = torch.sparse_csr_tensor(plan.row_ptr.long(), plan.src.long(), plan.w, size=(n, n))
     xt = x.permute(1, 0, 2).reshape(n, -1).contiguous()
-    return time_ms(lambda: torch.sparse.mm(a, xt), 50)
+    call = lambda: torch.sparse.mm(a, xt)
+    return {"library_ms": time_ms(call, 50), "library_device_ms": graph_replay_ms(call)}
+
+
+def spmm2_times(plan, x, precision, with_library: bool) -> dict:
+    """K1's time by events over back-to-back applies (``kernel_ms``, what a
+    caller sees) and by CUDA-graph replay (``device_ms``), the plain
+    version's, and the library call's where it computes the same function."""
+    call = lambda: spmm2(plan, x, precision)
+    row = {"kernel_ms": time_ms(call, 50), "device_ms": graph_replay_ms(call),
+           "plain_ms": time_ms(lambda: spmm2_plain(plan, x, precision), 10)}
+    library = (spmm2_library_times(plan, x) if with_library
+               else {"library_ms": None, "library_device_ms": None})
+    return {**row, **library}
 
 
 def check_spmm2_case(name, graph, batch, h, precision, x_dtype, *, timed,
@@ -174,11 +236,14 @@ def check_spmm2_case(name, graph, batch, h, precision, x_dtype, *, timed,
     x = torch.as_tensor(rng.standard_normal((batch, graph.n_nodes, h), np.float32),
                         device=dev).to(x_dtype)
     got = spmm2(plan, x, precision)
+    again = spmm2(plan, x, precision)
     want = spmm2_plain(plan, x, precision)
     scale = spmm2_plain(dataclasses.replace(plan, w=plan.w.abs()), x.float().abs(), precision)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != torch.float32:
         raise AssertionError(f"{name}: kernel gave {tuple(got.shape)} {got.dtype}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches on the same input differ")
     err = (got - want).abs()
     bad = err > KERNEL_REL_TOL * (1.0 + scale)
     if not torch.isfinite(got).all() or bad.any():
@@ -188,14 +253,14 @@ def check_spmm2_case(name, graph, batch, h, precision, x_dtype, *, timed,
     row = {"phase": "kernel", "kernel": "spmm2", "case": name, "n": graph.n_nodes,
            "edges": graph.n_edges, "batch": batch, "h": h, "precision": precision,
            "x_dtype": str(x_dtype).replace("torch.", ""),
+           "work_items": plan.work.shape[0], "partial_slots": plan.n_slots,
+           "bit_equal_twice": True,
            "max_abs_err": float(err.max()) if err.numel() else 0.0,
            "tol": f"{KERNEL_REL_TOL} * (1 + sum|w x|)", "ok": True,
            **spmm2_bound(plan, x)}
     if timed:
-        row["kernel_ms"] = time_ms(lambda: spmm2(plan, x, precision), 50)
-        row["plain_ms"] = time_ms(lambda: spmm2_plain(plan, x, precision), 10)
-        row["library_ms"] = (spmm2_library_ms(plan, x)
-                             if precision == "f32" and x_dtype == torch.float32 else None)
+        row.update(spmm2_times(plan, x, precision,
+                               precision == "f32" and x_dtype == torch.float32))
     emit(row)
     return row
 
@@ -209,6 +274,7 @@ def phase_kernel(graph) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     main = check_spmm2_case("enron_b8_h64_f32", graph, DISPATCH_BATCH, 64, "f32", f32,
                             timed=True)
+    check_spmm2_case("enron_b16_h64_f32", graph, 16, 64, "f32", f32, timed=True)
     check_spmm2_case("enron_b4_h64_f32", graph, 4, 64, "f32", f32, timed=True)
     check_spmm2_case("enron_b1_h64_f32", graph, 1, 64, "f32", f32, timed=True)  # training, batch 1
     check_spmm2_case("enron_b4_h64_bf16msg", graph, 4, 64, "bf16", f32, timed=True)
@@ -219,6 +285,18 @@ def phase_kernel(graph) -> dict:
     check_spmm2_case("enron_b2_h100", graph, 2, 100, "bf16", f32, timed=False)
     check_spmm2_case("enron_b1_h130_bf16x", graph, 1, 130, "bf16", bf16, timed=False)
     check_spmm2_case("enron_b2_h33", graph, 2, 33, "f32", f32, timed=False)  # odd h: scalar loads
+    check_spmm2_case("enron_b3_h64_bf16msg_bf16x", graph, 3, 64, "bf16", bf16, timed=False)
+    star, star_t = star_graphs()
+    check_spmm2_case("star_b3_h64", star, 3, 64, "f32", f32, timed=False, weighted=True)
+    check_spmm2_case("star_transposed_b3_h64", star_t, 3, 64, "f32", f32, timed=False,
+                     weighted=True)
+    check_spmm2_case("star_b1_h64_bf16msg_bf16x", star, 1, 64, "bf16", bf16, timed=False,
+                     weighted=True)
+    rows = boundary_rows_graph()
+    for batch, h, precision, x_dtype in ((3, 64, "f32", f32), (2, 64, "bf16", bf16),
+                                         (1, 33, "f32", f32), (2, 100, "f32", f32)):
+        check_spmm2_case(f"boundary_rows_b{batch}_h{h}_{precision}", rows, batch, h, precision,
+                         x_dtype, timed=False, weighted=True)
     edgeless = Graph(n_nodes=1000, src=np.zeros(0, np.int32), dst=np.zeros(0, np.int32))
     row = check_spmm2_case("edgeless", edgeless, 2, 64, "f32", f32, timed=False)
     if row["max_abs_err"] != 0.0:
@@ -242,6 +320,9 @@ def check_spmm2_bwd_case(name, graph, batch, precision, *, timed, weighted=False
     (got,) = torch.autograd.grad(y, x, g)
     if (spmm2.launches - before[0], spmm2.backward_launches - before[1]) != (2, 1):
         raise AssertionError(f"{name}: expected one forward and one backward K1 launch")
+    (again,) = torch.autograd.grad(adj.matvec(x), x, g)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two gradients of the same input differ")
     xd = x.detach()
     y_want = spmm2_plain(adj.plan, xd, precision)
     y_scale = spmm2_plain(dataclasses.replace(adj.plan, w=adj.plan.w.abs()), xd.abs(), precision)
@@ -262,13 +343,13 @@ def check_spmm2_bwd_case(name, graph, batch, precision, *, timed, weighted=False
             f"elements (max abs err {float(err.max())})")
     row = {"phase": "kernel", "kernel": "spmm2_bwd", "case": name, "n": graph.n_nodes,
            "edges": graph.n_edges, "batch": batch, "h": 64, "precision": precision,
-           "weighted": weighted, "max_abs_err": float(err.max()),
+           "weighted": weighted, "work_items": plan_t.work.shape[0],
+           "partial_slots": plan_t.n_slots, "bit_equal_twice": True,
+           "max_abs_err": float(err.max()),
            "tol": f"{KERNEL_REL_TOL} * (1 + sum|w g|)", "ok": True,
            **spmm2_bound(plan_t, g)}
     if timed:
-        row["kernel_ms"] = time_ms(lambda: spmm2(plan_t, g, precision), 50)
-        row["plain_ms"] = time_ms(lambda: spmm2_plain(plan_t, g, precision), 10)
-        row["library_ms"] = spmm2_library_ms(plan_t, g) if precision == "f32" else None
+        row.update(spmm2_times(plan_t, g, precision, precision == "f32"))
     emit(row)
     return row
 
@@ -276,9 +357,21 @@ def check_spmm2_bwd_case(name, graph, batch, precision, *, timed, weighted=False
 def phase_kernel_bwd(graph) -> dict:
     main = check_spmm2_bwd_case("bwd_enron_b1_f32", graph, 1, "f32", timed=True)
     check_spmm2_bwd_case("bwd_enron_b8_f32", graph, DISPATCH_BATCH, "f32", timed=True)
+    check_spmm2_bwd_case("bwd_enron_b16_f32", graph, 16, "f32", timed=True)
     check_spmm2_bwd_case("bwd_enron_b2_weighted", graph, 2, "f32", timed=False, weighted=True)
     check_spmm2_bwd_case("bwd_enron_b2_bf16_weighted", graph, 2, "bf16", timed=True,
                          weighted=True)
+    star, star_t = star_graphs()  # the gradient of each runs on the other's rows
+    check_spmm2_bwd_case("bwd_star_b2", star, 2, "f32", timed=False, weighted=True)
+    check_spmm2_bwd_case("bwd_star_transposed_b2", star_t, 2, "f32", timed=False, weighted=True)
+    check_spmm2_bwd_case("bwd_star_b2_bf16", star, 2, "bf16", timed=False, weighted=True)
+    rows = boundary_rows_graph()
+    check_spmm2_bwd_case("bwd_boundary_rows_b3", rows, 3, "f32", timed=False, weighted=True)
+    # transposed, so that the gradient is the one that walks the boundary rows
+    check_spmm2_bwd_case("bwd_boundary_rows_transposed_b3", transposed(rows), 3, "f32",
+                         timed=False, weighted=True)
+    check_spmm2_bwd_case("bwd_boundary_rows_transposed_b3_bf16", transposed(rows), 3, "bf16",
+                         timed=False, weighted=True)
     return main  # batch 1 is the training path's shape
 
 

@@ -1,31 +1,51 @@
-// K1 on Hopper: the A·Z_I SpMM of the GN-ODE vector field.
+// K1 on Hopper: the A·Z_I SpMM of the GN-ODE vector field, forward and (on
+// the transpose plan) gradient.
 //
 //   out[b, d, :] = sum_{e : dst[e] == d} w[e] * x[b, src[e], :]
 //
 // Replaces the chunked Pallas TPU kernel
 // gn_ode_sir_tpu/ops/pallas_spmm2.py::_kernel (launched by _spmm2_call).
 // That kernel recast the segment sum as one-hot [R, K] @ msgs [K, h] matmuls
-// over host-built edge chunks, with the gather x[src] * w done beforehand in
-// XLA. Its one-hot trick, sublane replication, lane padding and batch fold
-// existed only for the TPU compiler; none of it is needed here.
+// to feed a matrix unit, multiplying mostly by zeros. Here the work is 2
+// operations per 4-8 bytes gathered, so the tensor cores have nothing to do.
 //
-// Design: CSR over dst (row_ptr built once on the host from the dst-sorted
-// edge list). One warp owns one (scenario b, dst row d) pair: it walks the
-// row's edges, 32 edge indices/weights at a time loaded cooperatively and
-// broadcast with __shfl_sync, gathers x[b, src[e], :] with coalesced vector
-// loads (h = 64: 32 lanes x float2 = one 256-byte row), eight rows in
-// flight before it sums them, and accumulates in f32 registers. Each output
-// row is written exactly once: no atomics, no zero-fill pass, deterministic
-// summation order, and the gather is fused into the reduction. A row without edges writes zeros, so an edgeless graph
-// needs no special case.
+// What bounds it (H100 SXM, one f32 [n, 64] apply at enron size, n = 33,696,
+// E = 361k, largest row 1,436 edges): by the count of bytes it must move (x
+// and out 8.6 MB each, indices and weights 2.9 MB) 6 us at 3.35 TB/s; its
+// 46 MFLOP take 0.7 us. But a gather kernel really moves E·h·4 = 92 MB of x
+// rows per scenario, each row once per edge that names it. One scenario's x
+// sits in the 50 MB L2, so that traffic is L2 traffic, and the time is
+// set by how many row loads the card keeps in flight, not by the HBM rate.
 //
-// Bound (H100 SXM, one f32 [n, 64] apply at enron size, n = 33,696,
-// E = 361k): reads x 8.6 MB + src 1.45 MB + w 1.45 MB + row_ptr 0.13 MB,
-// writes out 8.6 MB: ~20 MB, ~6 us at 3.35 TB/s; 2·E·h = 46 MFLOP, ~0.7 us
-// at 67 TFLOP/s f32. Memory-bound: x and out scale with the batch B, the
-// index arrays do not. A hub row (enron's largest has ~1.4k edges) is
-// walked by one warp alone, eight loads in flight; splitting hubs across
-// warps and staging with cp.async/TMA is later work.
+// What the design does about it:
+// - A work list of bounded segments (built once per graph on the host,
+//   ops/spmm2.py::CsrPlan). Every dst row is one item, except that a row of
+//   more than L edges is cut into items of at most L consecutive edges. An
+//   item that is a whole row writes out[b, row, :]; an item that is a piece
+//   of a long row writes its partial sum to a scratch slot, and a small
+//   second kernel adds each long row's slots in segment order. So a hub row
+//   is gathered by many warps at once instead of one, its pieces come first
+//   in the list so that they are not the tail, and every output element is
+//   still written by one thread in an order the plan fixes: no atomics, two
+//   launches give the same bits. An edgeless row is an item of no edges and
+//   writes zeros.
+// - 16-byte loads, several rows per load instruction. Where a row of x is a
+//   multiple of 16 bytes (h = 64: 16 lanes x float4, or 8 lanes x 8 bf16),
+//   LPR lanes cover one row, so a warp holds 32 / LPR items and one load
+//   instruction gathers a row for each; kStepsInFlight such instructions are
+//   issued before any is summed. The list is sorted by edge count, so the
+//   items of one warp and of one block are equally long. Other widths (odd
+//   h, h = 130 bf16) take 2-, 4- or 8-byte loads with the whole warp on one
+//   item. A lane adds its item's messages in edge order, so a row that is
+//   one item is summed exactly as a sequential loop over the edge list sums
+//   it, which keeps the card's result next to the CPU path's.
+// - Registers capped (kMinBlocksPerSM) so that 32 warps are resident on an
+//   SM: the gather is bound by the loads in flight, not by arithmetic.
+// - Indices reused across scenarios. The lanes of an item gather it for
+//   kScenariosPerWarp scenarios at once: src and w are read once for the
+//   group and a short row still puts several loads in flight. Groups of
+//   scenarios are scheduled one after another, so that the x being gathered
+//   stays within the L2.
 //
 // bf16 message precision reproduces the JAX rounding exactly:
 // message = bf16(bf16(x) * bf16(w)), summed in f32.
@@ -38,180 +58,323 @@
 
 namespace {
 
-constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kWarpsPerBlock = 8;
-constexpr int kEdgesInFlight = 8;  // row loads a warp issues before summing
+constexpr int kWarpsPerBlock = 4;
+constexpr int kStepsInFlight = 2;     // gather instructions issued before summing
+constexpr int kScenariosPerWarp = 2;  // scenarios that share one read of src and w
+constexpr int kMinBlocksPerSM = 8;    // blocks resident on an SM: caps registers at 64
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Load VEC consecutive elements of x as floats.
+// VEC consecutive elements of x: loaded as they lie in memory (one load of
+// up to 16 bytes, held in as few registers while it is in flight) and
+// widened to floats only where they are summed.
 template <typename T, int VEC>
-struct LoadVec;
+struct RowPiece;
 
 template <>
-struct LoadVec<float, 1> {
-  static __device__ __forceinline__ void run(const float* p, float* v) {
-    v[0] = __ldg(p);
+struct RowPiece<float, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ Raw load(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ void widen(const Raw& r, float* v) { v[0] = r; }
+};
+
+template <>
+struct RowPiece<float, 2> {
+  using Raw = float2;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+  }
+  static __device__ __forceinline__ void widen(const Raw& r, float* v) {
+    v[0] = r.x;
+    v[1] = r.y;
   }
 };
 
 template <>
-struct LoadVec<float, 2> {
-  static __device__ __forceinline__ void run(const float* p, float* v) {
-    const float2 f = __ldg(reinterpret_cast<const float2*>(p));
-    v[0] = f.x;
-    v[1] = f.y;
+struct RowPiece<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void widen(const Raw& r, float* v) {
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+  }
+};
+
+__device__ __forceinline__ void widen_bf16x2(unsigned bits, float* v) {
+  v[0] = __uint_as_float(bits << 16);          // the low half is the first element
+  v[1] = __uint_as_float(bits & 0xffff0000u);  // bf16 is the top half of an f32
+}
+
+template <>
+struct RowPiece<__nv_bfloat16, 1> {
+  using Raw = __nv_bfloat16;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) { return p[0]; }
+  static __device__ __forceinline__ void widen(const Raw& r, float* v) {
+    v[0] = __bfloat162float(r);
   }
 };
 
 template <>
-struct LoadVec<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void run(const __nv_bfloat16* p, float* v) {
-    v[0] = __bfloat162float(p[0]);
+struct RowPiece<__nv_bfloat16, 2> {
+  using Raw = unsigned;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned*>(p));
   }
+  static __device__ __forceinline__ void widen(const Raw& r, float* v) { widen_bf16x2(r, v); }
 };
 
 template <>
-struct LoadVec<__nv_bfloat16, 2> {
-  static __device__ __forceinline__ void run(const __nv_bfloat16* p, float* v) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    v[0] = f.x;
-    v[1] = f.y;
+struct RowPiece<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void widen(const Raw& r, float* v) {
+    widen_bf16x2(r.x, v);
+    widen_bf16x2(r.y, v + 2);
+    widen_bf16x2(r.z, v + 4);
+    widen_bf16x2(r.w, v + 6);
   }
 };
 
 template <int VEC>
 __device__ __forceinline__ void store_vec(float* p, const float* v) {
-  if constexpr (VEC == 2) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < VEC; k += 4) {
+      *reinterpret_cast<float4*>(p + k) = make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+    }
+  } else if constexpr (VEC == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   } else {
     p[0] = v[0];
   }
 }
 
-// x: [batch, n, h] (T = float or bf16), out: [batch, n, h] f32.
-// Lane `lane` owns columns c0 + lane*VEC .. +VEC-1 of each 32*VEC-wide tile.
-template <typename T, bool BF16_MSG, int VEC>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-spmm2_csr_kernel(const T* __restrict__ x, const int* __restrict__ row_ptr,
-                 const int* __restrict__ src, const float* __restrict__ w,
-                 float* __restrict__ out, int n, int h, long long rows_total) {
-  const long long warp =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp >= rows_total) return;  // warp-uniform: the whole warp leaves
-  const long long b = warp / n;
-  const int row = static_cast<int>(warp - b * n);
-  const T* xb = x + b * static_cast<long long>(n) * h;
-  float* orow = out + warp * static_cast<long long>(h);
-  const int start = __ldg(row_ptr + row);
-  const int end = __ldg(row_ptr + row + 1);
+// LPR lanes per (work item, group of scenarios): a warp takes 32 / LPR items
+// that stand side by side in the list. x: [batch, n, h] (T = float or bf16);
+// out: [batch, n, h] f32; partial: [batch, n_slots, h] f32. work[i] = {first
+// edge, edge count, dst row, slot}: slot < 0 writes out[b, row, :], else
+// partial[b, slot, :]. Each lane owns VEC columns of every LPR * VEC-wide
+// column tile and adds its item's messages in edge order, as a sequential
+// sum would. No lane waits for another, so each leaves when it is done.
+template <typename T, bool BF16_MSG, int VEC, int LPR>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocksPerSM)
+spmm2_segment_kernel(const T* __restrict__ x, const int4* __restrict__ work,
+                     const int* __restrict__ src, const float* __restrict__ w,
+                     float* __restrict__ out, float* __restrict__ partial,
+                     int n, int h, int batch, int n_work, int n_slots,
+                     int item_blocks) {
+  constexpr int G = kScenariosPerWarp;
+  constexpr int U = kStepsInFlight;
+  constexpr int kItemsPerBlock = kWarpsPerBlock * 32 / LPR;
+  const int group = blockIdx.x / item_blocks;
+  const int item = (blockIdx.x - group * item_blocks) * kItemsPerBlock + threadIdx.x / LPR;
+  if (item >= n_work) return;
+  const int lane_col = (threadIdx.x % LPR) * VEC;
+  const int4 it = __ldg(work + item);
+  const int end = it.x + it.y;
 
-  for (int c0 = 0; c0 < h; c0 += 32 * VEC) {
-    const int c = c0 + lane * VEC;
-    const bool active = c < h;  // h % VEC == 0, so the whole vector is in range
-    float acc[VEC];
+  const T* xb[G];
+  float* ob[G];
+  bool live[G];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  for (int g = 0; g < G; ++g) {
+    const long long b = static_cast<long long>(group) * G + g;
+    live[g] = b < batch;
+    const long long bb = live[g] ? b : 0;
+    xb[g] = x + bb * n * h;
+    ob[g] = it.w < 0 ? out + (bb * n + it.z) * h : partial + (bb * n_slots + it.w) * h;
+  }
 
-    for (int base = start; base < end; base += 32) {
-      const int e = base + lane;
-      int s_lane = 0;
-      float w_lane = 0.f;
-      if (e < end) {
-        s_lane = __ldg(src + e);
-        w_lane = __ldg(w + e);
-        if constexpr (BF16_MSG) w_lane = round_bf16(w_lane);
-      }
-      const int cnt = min(32, end - base);  // warp-uniform
-      for (int j0 = 0; j0 < cnt; j0 += kEdgesInFlight) {
-        // kEdgesInFlight independent row loads are issued before any is
-        // summed, so a long (hub) row is not one memory latency per edge.
-        // Lanes past cnt wrap modulo 32 in the shuffle and are masked below.
-        int s[kEdgesInFlight];
-        float wj[kEdgesInFlight];
-        float v[kEdgesInFlight][VEC];
+  for (int c = lane_col; c < h; c += LPR * VEC) {  // h % VEC == 0: whole vectors
+    float acc[G][VEC];
 #pragma unroll
-        for (int u = 0; u < kEdgesInFlight; ++u) {
-          s[u] = __shfl_sync(kFullMask, s_lane, j0 + u);
-          wj[u] = __shfl_sync(kFullMask, w_lane, j0 + u);
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[g][k] = 0.f;
+    }
+
+    for (int e0 = it.x; e0 < end; e0 += U) {
+      // U * G independent row loads are issued before any is summed
+      long long off[U];
+      float wj[U];
+      typename RowPiece<T, VEC>::Raw raw[U][G];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (e0 + u < end) {
+          off[u] = static_cast<long long>(__ldg(src + e0 + u)) * h + c;
+          wj[u] = __ldg(w + e0 + u);
+          if constexpr (BF16_MSG) wj[u] = round_bf16(wj[u]);
         }
-        if (active) {
+      }
 #pragma unroll
-          for (int u = 0; u < kEdgesInFlight; ++u) {
-            if (j0 + u < cnt) {
-              LoadVec<T, VEC>::run(xb + static_cast<long long>(s[u]) * h + c, v[u]);
-            }
-          }
+      for (int u = 0; u < U; ++u) {
 #pragma unroll
-          for (int u = 0; u < kEdgesInFlight; ++u) {
-            if (j0 + u < cnt) {
+        for (int g = 0; g < G; ++g) {
+          if (e0 + u < end && live[g]) raw[u][g] = RowPiece<T, VEC>::load(xb[g] + off[u]);
+        }
+      }
 #pragma unroll
-              for (int k = 0; k < VEC; ++k) {
-                // the message is rounded before the sum, as the reference
-                // rounds x[src] * w (no fused multiply-add across it)
-                if constexpr (BF16_MSG) {
-                  acc[k] += round_bf16(__fmul_rn(round_bf16(v[u][k]), wj[u]));
-                } else {
-                  acc[k] += __fmul_rn(v[u][k], wj[u]);
-                }
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (e0 + u < end && live[g]) {
+            float v[VEC];
+            RowPiece<T, VEC>::widen(raw[u][g], v);
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) {
+              // the message is rounded before the sum, as the reference
+              // rounds x[src] * w (no fused multiply-add across it)
+              if constexpr (BF16_MSG) {
+                acc[g][k] += round_bf16(__fmul_rn(round_bf16(v[k]), wj[u]));
+              } else {
+                acc[g][k] += __fmul_rn(v[k], wj[u]);
               }
             }
           }
         }
       }
     }
-    if (active) store_vec<VEC>(orow + c, acc);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (live[g]) store_vec<VEC>(ob[g] + c, acc[g]);
+    }
   }
 }
 
-template <typename T, bool BF16_MSG>
-cudaError_t launch_typed(const void* x, const void* row_ptr, const void* src,
-                         const void* w, void* out, int n, int h, int batch,
-                         cudaStream_t stream) {
-  const long long rows_total = static_cast<long long>(n) * batch;
-  const long long blocks = (rows_total + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  const dim3 block(kWarpsPerBlock * 32);
-  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
-  const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
-  const T* xt = static_cast<const T*>(x);
-  const int* rp = static_cast<const int*>(row_ptr);
-  const int* sp = static_cast<const int*>(src);
-  const float* wp = static_cast<const float*>(w);
-  float* op = static_cast<float*>(out);
-  if (h % 2 == 0 && xa % (2 * sizeof(T)) == 0 && oa % 8 == 0) {
-    spmm2_csr_kernel<T, BF16_MSG, 2><<<grid, block, 0, stream>>>(
-        xt, rp, sp, wp, op, n, h, rows_total);
-  } else {
-    spmm2_csr_kernel<T, BF16_MSG, 1><<<grid, block, 0, stream>>>(
-        xt, rp, sp, wp, op, n, h, rows_total);
+// One warp per (scenario, long row): out[b, row, :] = the row's partial sums
+// added in segment order. fix_row[j] is the j-th long row, its slots are
+// fix_ptr[j] .. fix_ptr[j + 1] - 1.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+spmm2_fixup_kernel(const float* __restrict__ partial, const int* __restrict__ fix_row,
+                   const int* __restrict__ fix_ptr, float* __restrict__ out, int n,
+                   int h, int n_fix, int n_slots, long long warps_total) {
+  constexpr int U = 8;
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (warp >= warps_total) return;
+  const int lane = threadIdx.x & 31;
+  const long long b = warp / n_fix;
+  const int j = static_cast<int>(warp - b * n_fix);
+  const int s0 = __ldg(fix_ptr + j);
+  const int s1 = __ldg(fix_ptr + j + 1);
+  const float* p = partial + b * n_slots * h;
+  float* o = out + (b * n + __ldg(fix_row + j)) * h;
+  for (int c = lane; c < h; c += 32) {
+    float acc = 0.f;
+    for (int s = s0; s < s1; s += U) {
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (s + u < s1) v[u] = p[static_cast<long long>(s + u) * h + c];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (s + u < s1) acc += v[u];
+      }
+    }
+    o[c] = acc;
   }
+}
+
+struct Args {
+  const void* x;
+  const void* work;
+  const void* src;
+  const void* w;
+  const void* fix_row;
+  const void* fix_ptr;
+  void* partial;
+  void* out;
+  int n, h, batch, n_work, n_fix, n_slots;
+  cudaStream_t stream;
+};
+
+template <typename T, bool BF16_MSG, int VEC, int LPR>
+cudaError_t launch_segments(const Args& a) {
+  constexpr int kItemsPerBlock = kWarpsPerBlock * 32 / LPR;
+  const int item_blocks = (a.n_work + kItemsPerBlock - 1) / kItemsPerBlock;
+  const int groups = (a.batch + kScenariosPerWarp - 1) / kScenariosPerWarp;
+  const long long blocks = static_cast<long long>(item_blocks) * groups;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  spmm2_segment_kernel<T, BF16_MSG, VEC, LPR>
+      <<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, a.stream>>>(
+          static_cast<const T*>(a.x), static_cast<const int4*>(a.work),
+          static_cast<const int*>(a.src), static_cast<const float*>(a.w),
+          static_cast<float*>(a.out), static_cast<float*>(a.partial), a.n, a.h, a.batch,
+          a.n_work, a.n_slots, item_blocks);
+  return cudaGetLastError();
+}
+
+template <typename T, bool BF16_MSG>
+cudaError_t launch_typed(const Args& a) {
+  constexpr int kVec16 = 16 / static_cast<int>(sizeof(T));  // elements in 16 bytes
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(a.x);
+  const uintptr_t oa =
+      reinterpret_cast<uintptr_t>(a.out) | reinterpret_cast<uintptr_t>(a.partial);
+  cudaError_t err;
+  if (a.h % kVec16 == 0 && xa % 16 == 0 && oa % 16 == 0) {
+    const int vecs = a.h / kVec16;  // 16-byte pieces in one row of x
+    if (vecs <= 8) {
+      err = launch_segments<T, BF16_MSG, kVec16, 8>(a);
+    } else if (vecs <= 16) {
+      err = launch_segments<T, BF16_MSG, kVec16, 16>(a);
+    } else {
+      err = launch_segments<T, BF16_MSG, kVec16, 32>(a);
+    }
+  } else if (a.h % 2 == 0 && xa % (2 * sizeof(T)) == 0 && oa % 8 == 0) {
+    err = launch_segments<T, BF16_MSG, 2, 32>(a);
+  } else {
+    err = launch_segments<T, BF16_MSG, 1, 32>(a);
+  }
+  if (err != cudaSuccess || a.n_fix == 0) return err;
+  const long long warps_total = static_cast<long long>(a.n_fix) * a.batch;
+  const long long fix_blocks = (warps_total + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (fix_blocks > INT_MAX) return cudaErrorInvalidValue;
+  spmm2_fixup_kernel<<<static_cast<unsigned>(fix_blocks), kWarpsPerBlock * 32, 0, a.stream>>>(
+      static_cast<const float*>(a.partial), static_cast<const int*>(a.fix_row),
+      static_cast<const int*>(a.fix_ptr), static_cast<float*>(a.out), a.n, a.h, a.n_fix,
+      a.n_slots, warps_total);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). x_bf16: x holds bf16 (else f32);
-// bf16_msg: round messages to bf16 before the f32 sum. row_ptr is int32
-// [n + 1], src int32 [E], w f32 [E], out f32 [batch, n, h]; all contiguous
-// on the current device. Returns the cudaError_t of the launch (0 = ok).
-extern "C" int gnode_spmm2_csr(const void* x, int x_bf16, int bf16_msg,
-                               const void* row_ptr, const void* src,
-                               const void* w, void* out, int n, int h,
-                               int batch, void* stream) {
-  if (n <= 0 || h <= 0 || batch <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (x_bf16) {
-    err = bf16_msg ? launch_typed<__nv_bfloat16, true>(x, row_ptr, src, w, out, n, h, batch, s)
-                   : launch_typed<__nv_bfloat16, false>(x, row_ptr, src, w, out, n, h, batch, s);
-  } else {
-    err = bf16_msg ? launch_typed<float, true>(x, row_ptr, src, w, out, n, h, batch, s)
-                   : launch_typed<float, false>(x, row_ptr, src, w, out, n, h, batch, s);
+// Plain C entry point (bound with ctypes): one apply on `device` and
+// `stream`, the segment kernel and, where the plan has long rows, the kernel
+// that adds their partial sums. x_bf16: x holds bf16 (else f32); bf16_msg:
+// round messages to bf16 before the f32 sum. work is int32 [n_work, 4], src
+// int32 [E], w f32 [E], fix_row int32 [n_fix], fix_ptr int32 [n_fix + 1],
+// partial f32 [batch, n_slots, h] (scratch; unused when n_fix == 0), out f32
+// [batch, n, h]; all contiguous on `device`. Returns the cudaError_t of the
+// launches (0 = ok).
+extern "C" int gnode_spmm2(int device, void* stream, const void* x, int x_bf16,
+                           int bf16_msg, const void* work, int n_work, const void* src,
+                           const void* w, const void* fix_row, const void* fix_ptr,
+                           int n_fix, void* partial, int n_slots, void* out, int n,
+                           int h, int batch) {
+  if (n <= 0 || h <= 0 || batch <= 0 || n_work <= 0 || n_work > INT_MAX - kWarpsPerBlock * 32 ||
+      n_fix < 0 || n_slots < 0 || (n_fix > 0 && partial == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Args a{x, work, src, w, fix_row, fix_ptr, partial, out,
+               n, h, batch, n_work, n_fix, n_slots, static_cast<cudaStream_t>(stream)};
+  if (x_bf16) {
+    err = bf16_msg ? launch_typed<__nv_bfloat16, true>(a) : launch_typed<__nv_bfloat16, false>(a);
+  } else {
+    err = bf16_msg ? launch_typed<float, true>(a) : launch_typed<float, false>(a);
+  }
+  if (current != device) cudaSetDevice(current);
   return static_cast<int>(err);
 }

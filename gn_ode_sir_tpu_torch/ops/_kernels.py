@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -34,8 +35,8 @@ _L = ctypes.c_longlong
 _U = ctypes.c_uint
 # kernel name -> (source file, C symbol, argtypes); restype is int (cudaError_t)
 KERNELS = {
-    "spmm2": ("spmm2.cu", "gnode_spmm2_csr",
-              [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "spmm2": ("spmm2.cu", "gnode_spmm2",
+              [_I, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I]),
     "sir_step": ("sir_step.cu", "gnode_sir_step",
                  [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _U, _P]),
 }
@@ -63,13 +64,30 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _short_entry(mangled: str) -> str:
+    """``kernel<template arguments>`` out of an Itanium-mangled entry name
+    (``<length><name>``, the name ending in ``kernel``)."""
+    end = mangled.find("kernel") + len("kernel")
+    for start in range(end - len("kernel"), 1, -1):
+        for digits in (mangled[start - 2:start], mangled[start - 1:start]):
+            if digits.isdigit() and int(digits) == end - start:
+                targs = re.match(r"I(\w+?)EEv", mangled[end:])
+                return mangled[start:end] + (f"<{targs[1]}>" if targs else "")
+    return mangled
+
+
 def _ptxas_summary(log: str) -> list[str]:
-    """The distinct register counts, and any spills, from ``-Xptxas -v``."""
-    keep = set()
+    """Per entry function of ``-Xptxas -v``'s report: its name, registers,
+    shared memory, and any spills."""
+    out, entry = [], "?"
     for ln in log.splitlines():
-        if "registers" in ln or ("spill" in ln and " 0 bytes spill loads" not in ln):
-            keep.add(ln.split(":", 1)[-1].strip())
-    return sorted(keep)
+        text = ln.split(":", 1)[-1].strip()
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = _short_entry(m[1])
+        elif "registers" in ln or ("spill" in ln and " 0 bytes spill loads" not in ln):
+            out.append(f"{entry}: {text}")
+    return sorted(out)
 
 
 def build_all(names=None) -> dict:

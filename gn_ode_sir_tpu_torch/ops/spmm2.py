@@ -4,24 +4,42 @@
 
 Replaces the chunked Pallas TPU kernel
 ``gn_ode_sir_tpu/ops/pallas_spmm2.py::_kernel`` (and its ``Pallas2Adj``
-adjacency, selected by ``--spmm pallas2|pallas2-bf16``). The kernel,
-``gn_ode_sir_tpu_torch/csrc/spmm2.cu``, walks a CSR over dst with one warp
-per (scenario, dst row): the gather of ``x[src] * w`` is fused into the
-reduction, each output row is written once (no atomics, deterministic), and
-an edgeless row writes zeros.
+adjacency, selected by ``--spmm pallas2|pallas2-bf16``). The kernel is
+``gn_ode_sir_tpu_torch/csrc/spmm2.cu``; its host plan is :class:`CsrPlan`.
 
-Bound on an H100 SXM, one f32 [n, 64] apply at enron size (n = 33,696,
-E = 361k directed edges): ~20 MB moved (x and out 8.6 MB each, src and w
-1.45 MB each, row_ptr 0.13 MB), ~6 us at 3.35 TB/s, against ~0.7 us for its
-46 MFLOP at 67 TFLOP/s — memory-bound.
+What bounds it on an H100 SXM, one f32 [n, 64] apply at enron size
+(n = 33,696, E = 361k directed edges, largest row 1,436 edges): counting
+each input and output once it moves ~20 MB (x and out 8.6 MB each, src and
+w 1.45 MB each), ~6 us at 3.35 TB/s, against ~0.7 us for its 46 MFLOP at
+67 TFLOP/s — memory-bound. A gather kernel really reads E·h·4 = 92 MB of x
+rows per scenario, though, one row per edge; one scenario's x fits the
+50 MB L2, so that is L2 traffic and the time follows the number of row
+loads in flight.
+
+What the design does about it: the plan is a work list of segments of at
+most ``SEGMENT_EDGES`` consecutive edges of one dst row. A row that fits is
+one item, whose lanes write the output row; a longer (hub) row is cut into
+several items that write partial sums to scratch slots, and a small second
+kernel of the same apply adds each long row's slots in segment order. The
+list is sorted by edge count, largest first, so the pieces of hubs lead and
+the items that share a warp or a block are equally long. Where a row of x
+is a multiple of 16 bytes, 16 lanes (f32, h = 64) or 8 (bf16) take one item
+with 16-byte loads, so one load instruction of a warp gathers a row for
+each of its two or four items, two such instructions in flight, for two
+scenarios at once, so that src and w are read once per pair; registers are
+capped so that 32 warps stay resident on an SM. A lane adds its item's
+messages in edge order. Every output element is written by one thread in an
+order the plan fixes: no atomics, two applies give the same bits, and an
+edgeless row (an item of no edges) writes zeros.
 
 Beside the kernel: :func:`spmm2_plain`, the same function as a gather and an
 ``index_add_`` with the same bf16 rounding. :func:`spmm2` takes the plain
 version only for a CPU tensor; a CUDA tensor launches the kernel or raises.
-``spmm2.launches`` counts kernel launches, forward and backward.
+``spmm2.launches`` counts applies that launched the kernel, forward and
+backward.
 
 The gradient (K1-bwd, ``gn_ode_sir_tpu/ops/pallas_spmm2.py::_spmm2_diff_bwd``)
-is the same kernel on the transpose CSR: ``dx[s] = sum_{src[e]=s} w[e] *
+is the same kernel on the transpose plan: ``dx[s] = sum_{src[e]=s} w[e] *
 g[dst[e]]``, with the cotangent and the weights rounded to bf16 in bf16
 mode, as the reference's ``custom_vjp`` rounds them. :class:`Spmm2Adj`
 builds the transpose plan once on the host and routes ``matvec`` through one
@@ -42,17 +60,72 @@ from gn_ode_sir_tpu_torch.ops import _kernels
 from gn_ode_sir_tpu_torch.ops.segment import segment_sum
 
 PRECISIONS = ("f32", "bf16")
+SEGMENT_EDGES = 64  # the most edges of one work item
+
+
+def _work_list(counts: np.ndarray, row_ptr: np.ndarray, segment_edges: int):
+    """Cut the rows of a CSR into work items of at most ``segment_edges``
+    consecutive edges. Every row has at least one item, so that an edgeless
+    row is written too. Returns ``(work, fix_row, fix_ptr, edge_item,
+    item_row)``:
+
+    - ``work`` int32 [W, 4] of (first edge, edge count, dst row, slot), sorted
+      by edge count, largest first (so the pieces of long rows lead, the
+      items of one warp and block are equally long and the last blocks are
+      the shortest), items of equal count in row order. slot is -1 for a
+      whole row, else the index of the item's partial sum, the slots of one
+      row consecutive and in edge order;
+    - ``fix_row`` [F] the rows cut into several items (long rows) and
+      ``fix_ptr`` [F + 1] the range of slots of each;
+    - for the plain version, items numbered in (row, edge) order:
+      ``edge_item`` [E] the item of each edge, ``item_row`` [W] the row of
+      each item."""
+    n = counts.size
+    pieces = np.maximum(1, -(-counts // segment_edges))
+    row = np.repeat(np.arange(n, dtype=np.int64), pieces)
+    k = np.arange(row.size, dtype=np.int64) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    first = row_ptr[row] + k * segment_edges
+    count = np.minimum(segment_edges, counts[row] - k * segment_edges)
+    cut = pieces[row] > 1
+    slot = np.where(cut, np.cumsum(cut) - 1, -1)
+    order = np.argsort(-count, kind="stable")
+    work = np.stack([first, count, row, slot], axis=1)[order]
+    fix_row = np.flatnonzero(pieces > 1)
+    fix_ptr = np.concatenate([[0], np.cumsum(pieces[fix_row])])
+    edge_item = np.repeat(np.arange(row.size, dtype=np.int64), count)
+    return work, fix_row, fix_ptr, edge_item, row
 
 
 @dataclasses.dataclass(frozen=True)
 class CsrPlan:
-    """A dst-sorted edge list with its CSR row pointer, on one device."""
+    """A dst-sorted edge list on one device, with its CSR row pointer and the
+    kernel's work list (see :func:`_work_list`)."""
 
     row_ptr: torch.Tensor  # int32 [n + 1]
     src: torch.Tensor  # int32 [E]
-    dst: torch.Tensor  # int32 [E] (the plain version's index_add_ ids)
+    dst: torch.Tensor  # int32 [E]
     w: torch.Tensor  # float32 [E]
+    edge_item: torch.Tensor  # int32 [E]: the plain version's ids, edge -> item
+    item_row: torch.Tensor  # int32 [W]: and item -> dst row, in (row, edge) order
+    work: torch.Tensor  # int32 [W, 4]: first edge, edge count, dst row, slot
+    fix_row: torch.Tensor  # int32 [F]: the rows cut into several items
+    fix_ptr: torch.Tensor  # int32 [F + 1]: their ranges of partial-sum slots
     n_nodes: int
+
+    def __post_init__(self):
+        tensors = (self.row_ptr, self.src, self.dst, self.w, self.edge_item, self.item_row,
+                   self.work, self.fix_row, self.fix_ptr)
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError("the tensors of a plan must lie on one device")
+        # what every launch hands the kernel, read off the tensors once
+        object.__setattr__(self, "_kernel_args", (
+            self.work.data_ptr(), self.work.shape[0], self.src.data_ptr(), self.w.data_ptr(),
+            self.fix_row.data_ptr(), self.fix_ptr.data_ptr(), self.fix_row.shape[0]))
+
+    @property
+    def n_slots(self) -> int:
+        """Partial sums one scenario's apply writes to scratch."""
+        return self.work.shape[0] - self.n_nodes + self.fix_row.shape[0]
 
     @staticmethod
     def build(src, dst, n_nodes: int, w=None, *, device) -> "CsrPlan":
@@ -69,11 +142,17 @@ class CsrPlan:
         if src.size >= 2**31:
             raise ValueError("more than 2^31 - 1 edges: int32 row_ptr overflows")
         w = np.ones(src.shape, np.float32) if w is None else np.asarray(w, np.float32)
+        counts = np.bincount(dst, minlength=n_nodes)
         row_ptr = np.zeros(n_nodes + 1, np.int64)
-        np.cumsum(np.bincount(dst, minlength=n_nodes), out=row_ptr[1:])
+        np.cumsum(counts, out=row_ptr[1:])
+        work, fix_row, fix_ptr, edge_item, item_row = _work_list(
+            counts, row_ptr, SEGMENT_EDGES)
         as_t = lambda a, dt: torch.as_tensor(a.astype(dt), device=device)
         return CsrPlan(row_ptr=as_t(row_ptr, np.int32), src=as_t(src, np.int32),
                        dst=as_t(dst, np.int32), w=as_t(w, np.float32),
+                       edge_item=as_t(edge_item, np.int32),
+                       item_row=as_t(item_row, np.int32), work=as_t(work, np.int32),
+                       fix_row=as_t(fix_row, np.int32), fix_ptr=as_t(fix_ptr, np.int32),
                        n_nodes=int(n_nodes))
 
 
@@ -87,14 +166,23 @@ def spmm2_plain(plan: CsrPlan, x: torch.Tensor, precision: str = "f32") -> torch
 
     ``x``: [n, h] or [B, n, h], float32 or bfloat16. Returns float32 of the
     same shape. ``precision='bf16'`` rounds each message to
-    bf16(bf16(x) * bf16(w)) before the f32 sum, as the JAX kernel does."""
+    bf16(bf16(x) * bf16(w)) before the f32 sum, as the JAX kernel does.
+
+    The sum is taken as the kernel takes it, edges into work items and items
+    into rows, and so (on the CPU, where ``index_add_`` adds in index order)
+    in the kernel's order: a row cut into several items is the sum of their
+    partial sums. One flat sum over a 1,436-edge hub row rounds differently
+    enough from that to move a gradient leaf of one training step by 1.6e-4
+    of its size, which the card-against-CPU check would read as a fault."""
     _check_precision(precision)
     if precision == "bf16":
         msgs = (x.to(torch.bfloat16)[..., plan.src, :]
                 * plan.w.to(torch.bfloat16)[:, None]).float()
     else:
         msgs = x.float()[..., plan.src, :] * plan.w[:, None]
-    return segment_sum(msgs, plan.dst, plan.n_nodes, dim=msgs.dim() - 2)
+    dim = msgs.dim() - 2
+    items = segment_sum(msgs, plan.edge_item, plan.item_row.shape[0], dim=dim)
+    return segment_sum(items, plan.item_row, plan.n_nodes, dim=dim)
 
 
 def _launch(plan: CsrPlan, x: torch.Tensor, precision: str, backward: bool) -> torch.Tensor:
@@ -105,24 +193,27 @@ def _launch(plan: CsrPlan, x: torch.Tensor, precision: str, backward: bool) -> t
             f"x must be [n, h] or [B, n, h] with n = {plan.n_nodes}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("spmm2 kernel takes a contiguous x")
-    for t in (plan.row_ptr, plan.src, plan.w):
-        if t.device != x.device:
-            raise ValueError(f"plan lies on {t.device}, x on {x.device}")
-    xb = x if x.dim() == 3 else x[None]
-    b, n, h = xb.shape
-    out = torch.empty((b, n, h), dtype=torch.float32, device=x.device)
+    if plan.work.device != x.device:
+        raise ValueError(f"plan lies on {plan.work.device}, x on {x.device}")
+    b = x.shape[0] if x.dim() == 3 else 1
+    n, h = x.shape[-2:]
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if out.numel():
         fn = _kernels.kernel_function("spmm2")
-        with torch.cuda.device(x.device):
-            err = fn(xb.data_ptr(), int(x.dtype == torch.bfloat16),
-                     int(precision == "bf16"), plan.row_ptr.data_ptr(),
-                     plan.src.data_ptr(), plan.w.data_ptr(), out.data_ptr(),
-                     n, h, b, torch.cuda.current_stream(x.device).cuda_stream)
+        n_slots = plan.n_slots
+        # scratch for the partial sums of the rows cut into several items;
+        # it may go back to the allocator at once: this stream is its only user
+        partial = (torch.empty((b, n_slots, h), dtype=torch.float32, device=x.device)
+                   if n_slots else None)
+        err = fn(x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+                 x.data_ptr(), x.dtype == torch.bfloat16, precision == "bf16",
+                 *plan._kernel_args, partial.data_ptr() if n_slots else None, n_slots,
+                 out.data_ptr(), n, h, b)
         if err != 0:
             raise RuntimeError(f"spmm2 kernel launch failed: cudaError_t {err}")
         spmm2.launches += 1
         spmm2.backward_launches += int(backward)
-    return out if x.dim() == 3 else out[0]
+    return out
 
 
 def _apply(plan: CsrPlan, x: torch.Tensor, precision: str, backward: bool) -> torch.Tensor:

@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from gn_ode_sir_tpu_torch.graphs.graph import graph_from_edges
+from gn_ode_sir_tpu_torch.graphs.graph import Graph, graph_from_edges
 from gn_ode_sir_tpu_torch.models.gnode import GNODE
 from gn_ode_sir_tpu_torch.ops.adjacency import adjacency_from_graph
-from gn_ode_sir_tpu_torch.ops.spmm2 import CsrPlan, Spmm2Adj, spmm2, spmm2_plain
+from gn_ode_sir_tpu_torch.ops.spmm2 import (SEGMENT_EDGES, CsrPlan, Spmm2Adj, spmm2,
+                                            spmm2_plain)
 from gn_ode_sir_tpu_torch.sim import mc_sir, simulate_sir_counts, simulate_sir_counts_many
 from gn_ode_sir_tpu_torch.sim.fused_step import philox4x32_words, sir_step, sir_update_plain
 
@@ -35,25 +36,68 @@ def cuda_device():
 
 
 def _graph(n=300, m=1500, seed=0):
-    """A seeded random graph with one hub of degree > 64 (several 32-edge
-    batches and a ragged tail in one warp's row walk) and isolated nodes."""
+    """A seeded random graph with one hub of degree > 64 (a row cut into two
+    work items, the second a ragged tail) and isolated nodes."""
     rng = np.random.default_rng(seed)
     pairs = rng.integers(0, n - 5, size=(m, 2))
     hub = np.stack([np.zeros(90, np.int64), rng.integers(1, n - 5, 90)], axis=1)
     return graph_from_edges(n, np.concatenate([pairs, hub]), name="rand")
 
 
+def _transposed(g):
+    order = np.argsort(g.src, kind="stable")
+    return Graph(n_nodes=g.n_nodes, src=g.dst[order], dst=g.src[order], name=g.name + "_t")
+
+
+def _assert_close(got, want, scale, kind):
+    """rtol/atol 1e-5 of the value; on the star and boundary graphs, whose
+    long sums cancel, of the sum of |messages| where that is larger."""
+    if kind == "hub":
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    else:
+        assert ((got - want).abs() <= ATOL + RTOL * torch.maximum(want.abs(), scale)).all()
+
+
+def _case_graph(kind):
+    """``hub``: the random graph above (its hub row is cut into two work
+    items). ``star``: one row that owns all 5,000 edges; ``star_t``: its
+    transpose, every row one edge from one source. ``rows``: directed rows of
+    exactly L - 1, L, L + 1, 2L and 2L + 1 edges (L the plan's segment
+    length) between short and edgeless rows; ``rows_t``: its transpose."""
+    if kind == "hub":
+        return _graph()
+    if kind.startswith("star"):
+        g = Graph(n_nodes=5001, src=np.arange(1, 5001), dst=np.zeros(5000, np.int64),
+                  name="star")
+    else:
+        el = SEGMENT_EDGES
+        counts = np.array([el - 1, 3, el, 0, el + 1, 1, 2 * el, 0, 2 * el + 1, 5])
+        dst = np.repeat(np.arange(counts.size), counts)
+        g = Graph(n_nodes=12, src=np.random.default_rng(9).integers(0, 12, dst.size), dst=dst,
+                  name="rows")
+    return _transposed(g) if kind.endswith("_t") else g
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,precision,x_dtype", [
-    (64, "f32", torch.float32), (64, "bf16", torch.float32),
-    (8, "f32", torch.float32), (100, "f32", torch.bfloat16), (130, "bf16", torch.float32),
-    (33, "f32", torch.float32), (33, "bf16", torch.bfloat16)])
-def test_spmm2_kernel_matches_plain(cuda_device, h, precision, x_dtype):
+@pytest.mark.parametrize("kind,h,precision,x_dtype", [
+    ("hub", 64, "f32", torch.float32), ("hub", 64, "bf16", torch.float32),
+    ("hub", 8, "f32", torch.float32), ("hub", 100, "f32", torch.bfloat16),
+    ("hub", 130, "bf16", torch.float32),
+    ("hub", 33, "f32", torch.float32), ("hub", 33, "bf16", torch.bfloat16),
+    ("hub", 64, "bf16", torch.bfloat16),
+    ("star", 64, "f32", torch.float32), ("star_t", 64, "f32", torch.float32),
+    ("star", 64, "bf16", torch.bfloat16), ("star", 33, "f32", torch.float32),
+    ("rows", 64, "f32", torch.float32), ("rows_t", 64, "f32", torch.float32),
+    ("rows", 64, "bf16", torch.bfloat16), ("rows", 130, "f32", torch.bfloat16),
+    ("rows", 33, "f32", torch.float32)])
+def test_spmm2_kernel_matches_plain(cuda_device, kind, h, precision, x_dtype):
     """K1 against its plain version (f32 sums in another order: rtol/atol
-    1e-5); the launch is counted, the plain call is not. Even h takes the
-    two-wide vector loads, odd h the scalar ones; h = 130 spans three
+    1e-5); the launch is
+    counted, the plain call is not; two launches give the same bits. h = 64
+    takes 16-byte loads with two (f32) or four (bf16) work items per warp,
+    other even h two-wide loads, odd h scalar ones; h = 130 spans three
     column tiles."""
-    g = _graph()
+    g = _case_graph(kind)
     rng = np.random.default_rng(h)
     w = rng.uniform(0.5, 1.5, g.n_edges).astype(np.float32)
     plan = CsrPlan.build(g.src, g.dst, g.n_nodes, w=w, device=cuda_device)
@@ -65,10 +109,11 @@ def test_spmm2_kernel_matches_plain(cuda_device, h, precision, x_dtype):
     torch.cuda.synchronize()
     assert spmm2.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == x.shape
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    scale = spmm2_plain(plan, x.float().abs(), precision)  # w > 0: the sum of |messages|
+    _assert_close(got, want, scale, kind)
+    assert torch.equal(spmm2(plan, x, precision), got)
     single = spmm2(plan, x[0].contiguous(), precision)
-    np.testing.assert_allclose(single.cpu().numpy(), want[0].cpu().numpy(),
-                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(single, got[0])
 
 
 @pytest.mark.cuda
@@ -105,13 +150,15 @@ def test_gnode_predict_on_card_matches_cpu(cuda_device, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hub", "star", "star_t", "rows", "rows_t"])
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-def test_spmm2_gradient_kernel_matches_plain(cuda_device, precision):
+def test_spmm2_gradient_kernel_matches_plain(cuda_device, precision, kind):
     """K1-bwd: the gradient through the autograd Function is K1 on the
     transpose plan — against autograd through the plain version (f32) or the
-    plain version on the transpose plan with bf16 messages (bf16). The
-    weights make the transpose differ from the forward plan."""
-    g = _graph()
+    plain version on the transpose plan with bf16 messages (bf16); two
+    gradients of the same input have the same bits. The weights make the
+    transpose differ from the forward plan."""
+    g = _case_graph(kind)
     rng = np.random.default_rng(3)
     w = rng.uniform(0.5, 1.5, g.n_edges).astype(np.float32)
     adj = Spmm2Adj.from_graph(g, w=w, precision=precision, device=cuda_device)
@@ -126,7 +173,10 @@ def test_spmm2_gradient_kernel_matches_plain(cuda_device, precision):
         (want,) = torch.autograd.grad(spmm2_plain(adj.plan, x), x, ct)
     else:
         want = spmm2_plain(adj.plan_t, ct, "bf16")
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    scale = spmm2_plain(adj.plan_t, ct.abs(), precision)
+    _assert_close(got, want, scale, kind)
+    (again,) = torch.autograd.grad(adj.matvec(x), x, ct)
+    assert torch.equal(again, got)
     with torch.inference_mode():
         assert adj.matvec(x.detach()).shape == x.shape
 

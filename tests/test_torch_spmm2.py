@@ -9,6 +9,12 @@ both sides round each message to bf16(bf16(x) * bf16(w)) and sum in f32,
 so the same tolerance holds. The kernel itself is held against the plain
 version in ``tests/test_torch_cuda.py``, which runs only where a card is
 visible.
+
+The kernel's host plan (the work list of segments of at most
+``SEGMENT_EDGES`` edges) is checked here without a card: its invariants, and
+a plain function that walks the list as the kernel does — one partial sum
+per item, a long row's partial sums added in segment order — against the
+plain version and against the JAX kernel.
 """
 
 import jax.numpy as jnp
@@ -22,7 +28,8 @@ from gn_ode_sir_tpu.ops.pallas_spmm2 import Pallas2Adj, SpmmPlan, spmm_pallas2
 from gn_ode_sir_tpu_torch.graphs.graph import Graph
 from gn_ode_sir_tpu_torch.ops import spmm_coo, spmm_coo_batched, spmm_dense
 from gn_ode_sir_tpu_torch.ops.adjacency import CooAdj, DenseAdj, adjacency_from_graph
-from gn_ode_sir_tpu_torch.ops.spmm2 import CsrPlan, Spmm2Adj, spmm2
+from gn_ode_sir_tpu_torch.ops.spmm2 import (SEGMENT_EDGES, CsrPlan, Spmm2Adj, spmm2,
+                                            spmm2_plain)
 
 torch.set_num_threads(1)
 
@@ -215,3 +222,176 @@ def test_auto_picks_dense_then_k1_on_any_device():
         adjacency_from_graph(tiny, kind="ell", device="cpu")
     with pytest.raises(ValueError):
         adjacency_from_graph(tiny, kind="pallas3", device="cpu")
+
+
+# --- the kernel's work list -------------------------------------------------
+
+L = SEGMENT_EDGES
+
+
+def _rows_graph(counts, seed=0):
+    """A dst-sorted directed edge list whose row d has counts[d] edges, with
+    seeded sources and weights."""
+    counts = np.asarray(counts, np.int64)
+    n = max(counts.size, 3)
+    rng = np.random.default_rng([seed, counts.size])
+    dst = np.repeat(np.arange(counts.size), counts)
+    src = rng.integers(0, n, dst.size)
+    return src, dst, n, rng.uniform(0.5, 1.5, dst.size).astype(np.float32)
+
+
+def _transposed(src, dst, n, w):
+    """The same edges with the roles swapped, sorted by the new dst."""
+    order = np.argsort(src, kind="stable")
+    return dst[order], src[order], n, w[order]
+
+
+_star = (np.arange(1, 501), np.zeros(500, np.int64), 501,
+         np.linspace(0.5, 1.5, 500).astype(np.float32))
+PLAN_CASES = {
+    "edgeless": (np.zeros(0, np.int64), np.zeros(0, np.int64), 7, np.zeros(0, np.float32)),
+    "star": _star,
+    "star_transposed": _transposed(*_star),
+    "boundary_rows": _rows_graph([L - 1, L, L + 1, 0, 2 * L, 2 * L + 1, 1, 3]),
+    "boundary_rows_transposed": _transposed(
+        *_rows_graph([L - 1, L, L + 1, 0, 2 * L, 2 * L + 1, 1, 3])),
+    "one_row_exactly_L": _rows_graph([L]),
+    "last_row_long": _rows_graph([2, 0, 0, 5 * L + 7]),
+    "hubs_between_short_rows": _rows_graph([3, 4 * L, 0, 1, 3 * L + 1, 2, L + 5], seed=3),
+}
+
+
+def _walk_work_list(plan, x, precision="f32"):
+    """K1 as the kernel walks its plan: each work item sums its edges'
+    messages; an item that is a whole row is the output row, the items of a
+    long row are partial sums in slots, added in slot order."""
+    work, src, w = plan.work.long(), plan.src.long(), plan.w
+    xb = x if x.dim() == 3 else x[None]
+    if precision == "bf16":
+        msgs = (xb.to(torch.bfloat16)[:, src, :] * w.to(torch.bfloat16)[:, None]).float()
+    else:
+        msgs = xb.float()[:, src, :] * w[:, None]
+    item_of_edge = torch.full((src.numel(),), -1, dtype=torch.long)
+    for i, (first, count, _, _) in enumerate(work.tolist()):
+        item_of_edge[first:first + count] = i
+    sums = torch.zeros((xb.shape[0], work.shape[0], xb.shape[2]))
+    sums.index_add_(1, item_of_edge, msgs)
+    out = torch.full((xb.shape[0], plan.n_nodes, xb.shape[2]), float("nan"))
+    partial = torch.full((xb.shape[0], plan.n_slots, xb.shape[2]), float("nan"))
+    for i, (_, _, row, slot) in enumerate(work.tolist()):
+        if slot < 0:
+            out[:, row] = sums[:, i]
+        else:
+            partial[:, slot] = sums[:, i]
+    fix_ptr = plan.fix_ptr.tolist()
+    for j, row in enumerate(plan.fix_row.tolist()):
+        acc = torch.zeros_like(out[:, row])
+        for s in range(fix_ptr[j], fix_ptr[j + 1]):
+            acc = acc + partial[:, s]
+        out[:, row] = acc
+    return out if x.dim() == 3 else out[0]
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_work_list_covers_every_edge_once_in_dst_order(case):
+    src, dst, n, w = PLAN_CASES[case]
+    plan = CsrPlan.build(src, dst, n, w=w, device="cpu")
+    work = plan.work.numpy().astype(np.int64)
+    first, count, row, slot = work.T
+    counts = np.bincount(dst, minlength=n)
+    assert work.shape[1] == 4 and (count >= 0).all() and (count <= L).all()
+    # every row has ceil(count / L) items, at least one
+    np.testing.assert_array_equal(np.bincount(row, minlength=n),
+                                  np.maximum(1, -(-counts // L)))
+    # the items of one row, in list order, tile the row's edges in order
+    by_row = np.argsort(row, kind="stable")
+    np.testing.assert_array_equal(first[by_row][1:][count[by_row][:-1] > 0],
+                                  (first + count)[by_row][:-1][count[by_row][:-1] > 0])
+    edges = np.concatenate([np.arange(f, f + c) for f, c in zip(first[by_row], count[by_row])]
+                           or [np.zeros(0, np.int64)])
+    np.testing.assert_array_equal(edges, np.arange(dst.size))
+    assert all((dst[f:f + c] == r).all() for f, c, r in zip(first, count, row))
+    # a row of at most L edges is one item that writes the output itself
+    whole = counts[row] <= L
+    assert (slot[whole] == -1).all() and (np.bincount(row[whole], minlength=n) <= 1).all()
+    # the list is sorted by edge count, largest first, ties in (row, edge) order
+    assert (np.diff(count) <= 0).all()
+    ties = np.diff(count) == 0
+    assert (np.diff(row)[ties] >= 0).all() and (np.diff(first)[ties] >= 0).all()
+    # the pieces of long rows hold the slots 0, 1, ... in (row, edge) order
+    n_cut = int((~whole).sum())
+    cut_items = np.flatnonzero(~whole)
+    cut_items = cut_items[np.lexsort((first[cut_items], row[cut_items]))]
+    np.testing.assert_array_equal(slot[cut_items], np.arange(n_cut))
+    assert plan.n_slots == n_cut
+    # the fix-up list names each long row once with its range of slots
+    fix_row, fix_ptr = plan.fix_row.numpy(), plan.fix_ptr.numpy()
+    np.testing.assert_array_equal(fix_row, np.flatnonzero(counts > L))
+    assert fix_ptr[0] == 0 and fix_ptr[-1] == n_cut and fix_ptr.size == fix_row.size + 1
+    by_slot = np.full(n_cut, -1)
+    by_slot[slot[~whole]] = np.flatnonzero(~whole)
+    # the plain version's ids: items numbered in (row, edge) order
+    natural = np.lexsort((first, row))
+    np.testing.assert_array_equal(plan.item_row.numpy(), row[natural])
+    np.testing.assert_array_equal(plan.edge_item.numpy(),
+                                  np.repeat(np.arange(row.size), count[natural]))
+    for j, r in enumerate(fix_row):
+        items = by_slot[fix_ptr[j]:fix_ptr[j + 1]]
+        assert (row[items] == r).all() and (count[items[:-1]] == L).all()
+        assert (np.diff(first[items]) == L).all()
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_walking_the_work_list_equals_plain(case, precision):
+    """Against the plain version, which sums in the plan's order too, and
+    against one flat ``index_add_`` over the edge list (f32 sums in another
+    order: 1e-6 relative to the sum of |messages|)."""
+    src, dst, n, w = PLAN_CASES[case]
+    plan = CsrPlan.build(src, dst, n, w=w, device="cpu")
+    x = torch.as_tensor(np.random.default_rng(len(case)).standard_normal(
+        (2, n, 8)).astype(np.float32))
+    got = _walk_work_list(plan, x, precision)
+    want = spmm2_plain(plan, x, precision)
+    scale = spmm2_plain(plan, x.abs(), precision)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-6 * (1.0 + scale)).all()
+    assert torch.equal(got, want)  # on the CPU index_add_ adds in index order
+    xs = x.to(torch.bfloat16) if precision == "bf16" else x
+    ws = plan.w.to(xs.dtype)
+    flat = torch.zeros_like(want).index_add_(
+        1, plan.dst, (xs[:, plan.src.long()] * ws[:, None]).float())
+    assert ((got - flat).abs() <= 1e-6 * (1.0 + scale)).all()
+    if dst.size == 0:
+        assert torch.count_nonzero(got) == 0
+    single = _walk_work_list(plan, x[0], precision)
+    assert torch.equal(single, got[0])
+
+
+@pytest.mark.parametrize("case", ["boundary_rows", "boundary_rows_transposed", "star",
+                                  "hubs_between_short_rows"])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_walking_the_work_list_matches_jax_kernel(case, precision):
+    """Against the JAX kernel in interpret mode, tolerance as in
+    ``test_plain_matches_jax_kernel``."""
+    src, dst, n, w = PLAN_CASES[case]
+    x = np.random.default_rng(5).standard_normal((n, 8)).astype(np.float32)
+    jplan = SpmmPlan.build(src, dst, n, w=w, k_edges=16, r_rows=8)
+    want = np.asarray(spmm_pallas2(jplan, jnp.asarray(x), interpret=True,
+                                   precision=precision))
+    plan = CsrPlan.build(src, dst, n, w=w, device="cpu")
+    got = _walk_work_list(plan, torch.as_tensor(x), precision)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_work_list_of_a_graph_with_short_rows_only(random_graph):
+    """Rows of at most L edges: one item per row, no scratch."""
+    jg = random_graph
+    assert jg.degrees.max() <= L
+    plan = CsrPlan.build(jg.src, jg.dst, jg.n_nodes, device="cpu")
+    work = plan.work.numpy()
+    work = work[np.argsort(work[:, 2])]
+    np.testing.assert_array_equal(work[:, 2], np.arange(jg.n_nodes))
+    np.testing.assert_array_equal(work[:, 0], plan.row_ptr.numpy()[:-1])
+    np.testing.assert_array_equal(work[:, 1], jg.degrees)
+    assert (work[:, 3] == -1).all() and plan.n_slots == 0 and plan.fix_row.numel() == 0
