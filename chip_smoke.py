@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths on one NVIDIA card at enron size — serving, and
-labels -> training -> CSV — and holds every hand-written kernel against its
-plain PyTorch version. Phases, each printed as one JSON line:
+Drives the port's main paths on one NVIDIA card — serving and labels ->
+training -> CSV at enron size, the published multi-graph run (five train
+graphs and an unseen evaluation graph) and the GCN, GIN, DMP and Runge-Kutta
+baselines — and holds every hand-written kernel against its plain PyTorch
+version. Phases, each printed as one JSON line:
 
 1. device — the card (and ``nvidia-smi``'s name and power limit, raw);
 2. build  — every kernel compiled from ``gn_ode_sir_tpu_torch/csrc``;
@@ -18,7 +20,10 @@ plain PyTorch version. Phases, each printed as one JSON line:
    trials, and the whole chunk of trials the label path puts into one
    launch, with the count product timed beside it and checked for exactness
    on the hub), K1-bwd (the gradient through the autograd Function, and the
-   Function's forward);
+   Function's forward); K1 and K1-bwd also at the multi-graph shapes: width
+   8 (the published multi-graph hidden) and 5 (GIN's first layer), plans
+   padded to the train view's and the evaluation graph's width, with and
+   without GCN-normalized weights;
 4. serve  — C7 GN-ODE (hidden 64, euler, deltaT 0.5, maxTime 20) with
    seeded random params, scored through ``cli.worker``/``cli.infer``:
    16 summary scenarios in dispatches of 8 and 2 full-trajectory scenarios,
@@ -31,7 +36,18 @@ plain PyTorch version. Phases, each printed as one JSON line:
    those six trials: K1 forward and backward launch counts, losses, the CSV
    row, the saved checkpoint served through ``cli.infer``, and one training
    step on the card against the same step on the CPU;
-7. kernels — one line listing every ported kernel;
+7. multigraph — the published multi-graph configuration through
+   ``cli.worker.main`` (six power-law graphs of the published sizes, the last
+   unseen; hidden 8, batch 8, Adam lr 1e-3, ``--mg_adj auto``): ``auto`` must
+   resolve to K1, training must run at the train view's width and evaluation
+   at the full width, graph-homogeneous minibatches, K1 launch counts, ms per
+   training step by graph and per evaluation pass, the CSV row, and one
+   training step of GN-ODE, GCN and GIN on the card against the CPU;
+8. baselines — on the wiki-vote-size graph, ``--model GCN`` and ``GIN`` (one
+   epoch each, a step against the CPU, the checkpoint served), ``--model
+   dmp`` and ``--model rk`` through ``cli.worker.main``, DMP and RK on the
+   card against the CPU;
+9. kernels — one line listing every ported kernel;
 and last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before doing anything.
 """
@@ -44,6 +60,7 @@ import dataclasses
 import io
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -56,13 +73,17 @@ import torch
 
 from gn_ode_sir_tpu_torch.cli import infer, worker
 from gn_ode_sir_tpu_torch.graphs.graph import Graph, graph_from_edges
-from gn_ode_sir_tpu_torch.ops import _kernels
+from gn_ode_sir_tpu_torch.models import DMPSIR, GCN, GIN, TimeUnrolledSIR
+from gn_ode_sir_tpu_torch.ops import _kernels, gcn_norm_edges
 from gn_ode_sir_tpu_torch.ops.spmm2 import (SEGMENT_EDGES, CsrPlan, Spmm2Adj, spmm2,
                                             spmm2_plain)
-from gn_ode_sir_tpu_torch.sim import mc_sir
+from gn_ode_sir_tpu_torch.sim import classical, mc_sir, sir_classical_batch
 from gn_ode_sir_tpu_torch.sim.fused_step import philox4x32_words, sir_step, sir_update_plain
-from gn_ode_sir_tpu_torch.train import build_trial_data, l1_sir_loss
-from gn_ode_sir_tpu_torch.train.checkpoint import save_params
+from gn_ode_sir_tpu_torch.train import (assemble_multigraph_trials, build_trial_data, l1_sir_loss,
+                                        multigraph_auto_fns, multigraph_split)
+from gn_ode_sir_tpu_torch.train.checkpoint import save_params, tree_leaves, tree_map
+from gn_ode_sir_tpu_torch.train.loop import (_batch_loss, _data_to_device, make_eval_fn,
+                                             make_train_epoch_fn)
 from gn_ode_sir_tpu_torch.utils import load_or_extract_labels_many
 from gn_ode_sir_tpu_torch.utils.csvsink import TRIAL_COLUMNS
 
@@ -86,6 +107,21 @@ MAX_TIME = 20  # label times 0..19: 19 simulated steps
 TRAIN_EPOCHS = 2
 STEP_LOSS_ATOL = 1e-5  # one training step, card vs CPU
 STEP_GRAD_RTOL = 1e-4  # per gradient leaf, max-norm
+GIN_LOSS_SANITY = 1e-3  # GIN's step is reported, not held (check_step_against_cpu)
+# the published multi-graph run: (nodes, directed edges) of dolphins, fb-food,
+# fb-social, openflights, wiki-vote and enron; the last is the unseen graph
+MG_GRAPH_SIZES = ((62, 318), (620, 4_204), (1_893, 27_670), (2_905, 31_290),
+                  (7_066, 201_472), (33_696, 361_622))
+MG_HIDDEN = 8
+MG_BATCH = 8
+MG_TRIALS_PER_GRAPH = 8  # the published run has 36 per train graph and 120 on enron
+MG_SIMS = 1_000  # simulations per label (published: 10,000)
+MG_EPOCHS = 2
+MG_TRAIN_WIDTH = 7_168  # wiki-vote's 7,066 nodes rounded up to 128
+WIKI, FB_SOCIAL = 4, 2  # positions in MG_GRAPH_SIZES
+BASELINE_HIDDEN = 64
+DMP_ATOL = 1e-5  # DMP marginals, card vs CPU
+RK_ATOL = 1e-4  # RK trajectories, card vs CPU
 
 
 def emit(obj) -> None:
@@ -227,11 +263,14 @@ def spmm2_times(plan, x, precision, with_library: bool) -> dict:
 
 
 def check_spmm2_case(name, graph, batch, h, precision, x_dtype, *, timed,
-                     weighted=False):
-    """K1 against its plain version on the card; raises on disagreement."""
+                     weighted=False, w=None, real_nodes=None):
+    """K1 against its plain version on the card; raises on disagreement.
+    ``weighted`` draws random edge weights, ``w`` gives them; ``real_nodes``:
+    the rows from there on (a plan padded beyond its graph) must be zeros."""
     dev = torch.device("cuda")
     rng = np.random.default_rng([SEED, zlib.crc32(name.encode())])
-    w = rng.uniform(0.5, 1.5, graph.n_edges).astype(np.float32) if weighted else None
+    if weighted:
+        w = rng.uniform(0.5, 1.5, graph.n_edges).astype(np.float32)
     plan = CsrPlan.build(graph.src, graph.dst, graph.n_nodes, w=w, device=dev)
     x = torch.as_tensor(rng.standard_normal((batch, graph.n_nodes, h), np.float32),
                         device=dev).to(x_dtype)
@@ -250,6 +289,8 @@ def check_spmm2_case(name, graph, batch, h, precision, x_dtype, *, timed,
         raise AssertionError(
             f"{name}: kernel disagrees with its plain version at {int(bad.sum())} "
             f"elements (max abs err {float(err.max())})")
+    if real_nodes is not None and got[:, real_nodes:].any():
+        raise AssertionError(f"{name}: rows beyond the graph's {real_nodes} nodes are not zeros")
     row = {"phase": "kernel", "kernel": "spmm2", "case": name, "n": graph.n_nodes,
            "edges": graph.n_edges, "batch": batch, "h": h, "precision": precision,
            "x_dtype": str(x_dtype).replace("torch.", ""),
@@ -265,7 +306,25 @@ def check_spmm2_case(name, graph, batch, h, precision, x_dtype, *, timed,
     return row
 
 
-def phase_kernel(graph) -> dict:
+def multigraph_kernel_cases(mg_graphs):
+    """(name, graph at the plan's width, weights, real nodes, h) of K1 at the
+    multi-graph shapes: the wiki-vote-size graph on the train view's plan and
+    the enron-size graph on the evaluation plan, each also with
+    GCN-normalized weights (self-loops added), at the published hidden 8; and
+    the train plan at GIN's first-layer width 5."""
+    cases = []
+    for tag, g, width in (("wiki_train", mg_graphs[WIKI], MG_TRAIN_WIDTH),
+                          ("enron_eval", mg_graphs[-1], mg_graphs[-1].n_nodes)):
+        at = lambda src, dst: Graph(n_nodes=width, src=src, dst=dst, name=g.name)
+        cases.append((f"mg_{tag}_b8_h8", at(g.src, g.dst), None, g.n_nodes, MG_HIDDEN))
+        src, dst, w = gcn_norm_edges(g)
+        cases.append((f"mg_{tag}_b8_h8_gcn", at(src, dst), w, g.n_nodes, MG_HIDDEN))
+        if width == MG_TRAIN_WIDTH:
+            cases.append((f"mg_{tag}_b8_h5", at(g.src, g.dst), None, g.n_nodes, 5))
+    return cases
+
+
+def phase_kernel(graph, mg_graphs) -> tuple[dict, list]:
     degmax = int(graph.degrees.max())
     emit({"phase": "graph", "n": graph.n_nodes, "edges": graph.n_edges,
           "max_degree": degmax, "mean_degree": graph.n_edges / graph.n_nodes})
@@ -301,18 +360,23 @@ def phase_kernel(graph) -> dict:
     row = check_spmm2_case("edgeless", edgeless, 2, 64, "f32", f32, timed=False)
     if row["max_abs_err"] != 0.0:
         raise AssertionError("edgeless graph must give exact zeros")
-    return main
+    mg_rows = [check_spmm2_case(name, g, MG_BATCH, h, "f32", f32, timed=True, w=w,
+                                real_nodes=real)
+               for name, g, w, real, h in multigraph_kernel_cases(mg_graphs)]
+    return main, mg_rows
 
 
-def check_spmm2_bwd_case(name, graph, batch, precision, *, timed, weighted=False):
+def check_spmm2_bwd_case(name, graph, batch, precision, *, timed, weighted=False, w=None,
+                         h=64):
     """K1-bwd: the gradient through the autograd Function on the card against
     (f32) autograd through the plain version, or (bf16) the plain version on
     the transpose plan with bf16 messages; raises on disagreement."""
     dev = torch.device("cuda")
     rng = np.random.default_rng([SEED, zlib.crc32(name.encode())])
-    w = rng.uniform(0.5, 1.5, graph.n_edges).astype(np.float32) if weighted else None
+    if weighted:
+        w = rng.uniform(0.5, 1.5, graph.n_edges).astype(np.float32)
     adj = Spmm2Adj.from_graph(graph, w=w, precision=precision, device=dev)
-    shape = (batch, graph.n_nodes, 64)
+    shape = (batch, graph.n_nodes, h)
     x = torch.as_tensor(rng.standard_normal(shape, np.float32), device=dev).requires_grad_(True)
     g = torch.as_tensor(rng.standard_normal(shape, np.float32), device=dev)
     before = (spmm2.launches, spmm2.backward_launches)
@@ -342,8 +406,8 @@ def check_spmm2_bwd_case(name, graph, batch, precision, *, timed, weighted=False
             f"{name}: K1-bwd disagrees with its plain version at {int(bad.sum())} "
             f"elements (max abs err {float(err.max())})")
     row = {"phase": "kernel", "kernel": "spmm2_bwd", "case": name, "n": graph.n_nodes,
-           "edges": graph.n_edges, "batch": batch, "h": 64, "precision": precision,
-           "weighted": weighted, "work_items": plan_t.work.shape[0],
+           "edges": graph.n_edges, "batch": batch, "h": h, "precision": precision,
+           "weighted": w is not None, "work_items": plan_t.work.shape[0],
            "partial_slots": plan_t.n_slots, "bit_equal_twice": True,
            "max_abs_err": float(err.max()),
            "tol": f"{KERNEL_REL_TOL} * (1 + sum|w g|)", "ok": True,
@@ -354,7 +418,7 @@ def check_spmm2_bwd_case(name, graph, batch, precision, *, timed, weighted=False
     return row
 
 
-def phase_kernel_bwd(graph) -> dict:
+def phase_kernel_bwd(graph, mg_graphs) -> tuple[dict, list]:
     main = check_spmm2_bwd_case("bwd_enron_b1_f32", graph, 1, "f32", timed=True)
     check_spmm2_bwd_case("bwd_enron_b8_f32", graph, DISPATCH_BATCH, "f32", timed=True)
     check_spmm2_bwd_case("bwd_enron_b16_f32", graph, 16, "f32", timed=True)
@@ -372,7 +436,9 @@ def phase_kernel_bwd(graph) -> dict:
                          timed=False, weighted=True)
     check_spmm2_bwd_case("bwd_boundary_rows_transposed_b3_bf16", transposed(rows), 3, "bf16",
                          timed=False, weighted=True)
-    return main  # batch 1 is the training path's shape
+    mg_rows = [check_spmm2_bwd_case("bwd_" + name, g, MG_BATCH, "f32", timed=True, w=w, h=h)
+               for name, g, w, _, h in multigraph_kernel_cases(mg_graphs)]
+    return main, mg_rows  # batch 1 is the training path's shape
 
 
 def check_sir_step_case(name, i, r, counts, betas, gammas, sims, *, step=3, timed=False,
@@ -676,15 +742,93 @@ def phase_labels(graph, trials, save_dir, compared_chunk) -> dict:
 
 def _loss_and_grads(model, params, adj, data, device):
     """Loss of trial 0 as one minibatch, and its gradient per leaf."""
-    params = {k: {kk: t.detach().to(device).requires_grad_(True) for kk, t in v.items()}
-              for k, v in params.items()}
+    params = tree_map(lambda t: t.detach().to(device).requires_grad_(True), params)
     first = lambda a: torch.as_tensor(a[:1], device=device)
     pred = model.predict(params, adj, first(data.s0), first(data.i0), first(data.r0),
-                         first(data.beta), first(data.gamma))
+                         first(data.beta), first(data.gamma), train=True)
     loss = l1_sir_loss(pred, first(data.labels), trial_weight=torch.ones(1, device=device))
     loss.backward()
-    return float(loss.detach()), {f"{k}/{kk}": leaf.grad.cpu() for k, v in params.items()
-                         for kk, leaf in v.items()}, params
+    return float(loss.detach()), _grads(params), params
+
+
+def _grads(params) -> dict:
+    """Gradient per leaf that has one (the baselines' last layer has none)."""
+    return {path: leaf.grad.cpu() for path, leaf in tree_leaves(params)
+            if leaf.grad is not None}
+
+
+def check_step_against_cpu(what, card, cpu, hold_gradients=True) -> dict:
+    """``card`` and ``cpu``: (loss, gradient per leaf) of the same step.
+    Raises unless the losses agree within ``STEP_LOSS_ATOL`` and every leaf
+    within ``STEP_GRAD_RTOL`` of its largest entry. A leaf whose gradient is
+    rounding noise (dec2/b shifts all three logits, which the softmax
+    ignores) is held to the scale of the largest leaf.
+
+    ``hold_gradients=False`` (GIN): the leaves must be the same and finite and
+    the losses within ``GIN_LOSS_SANITY``; the errors are returned, not held
+    to the tolerances. GIN's 19 batch-normalized layers at a random init
+    amplify float32 rounding so far that the CPU path disagrees with itself:
+    with the neighbour sum taken in another order (the flat COO sum for K1's
+    plain version) its loss moves by up to 1e-4 and its gradient leaves by
+    more than their own size on every graph here but the smallest, at hidden
+    8 and 64, while GCN's leaves move by 2e-7."""
+    (loss_gpu, grads_gpu), (loss_cpu, grads_cpu) = card, cpu
+    top = max(float(g.abs().max()) for g in grads_cpu.values())
+    rel = {k: float((grads_gpu[k] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * top)
+           for k, g in grads_cpu.items()}
+    worst = worst_leaf(rel)
+    loss_atol = STEP_LOSS_ATOL if hold_gradients else GIN_LOSS_SANITY
+    if (abs(loss_gpu - loss_cpu) > loss_atol or grads_gpu.keys() != grads_cpu.keys()
+            or not np.isfinite(worst["max"])
+            or (hold_gradients and worst["max"] > STEP_GRAD_RTOL)):
+        raise AssertionError(
+            f"{what}: one step, card vs CPU: loss {loss_gpu} vs {loss_cpu}, "
+            f"worst gradient leaf {worst}")
+    return rel
+
+
+def worst_leaf(rel: dict) -> dict:
+    """The largest entry of a per-leaf error dict, for a model of many leaves."""
+    at = max(rel, key=rel.get)
+    return {"leaves": len(rel), "max": rel[at], "at": at}
+
+
+def run_worker(argv, graph):
+    """``cli.worker.main`` on the card with its output captured: (what it
+    printed, seconds). Raises unless it returns 0."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = worker.main([*argv, "--device", "cuda"], graph=graph)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"worker.main returned {rc}")
+    return out.getvalue(), seconds
+
+
+def training_history(printed: str, epochs: int) -> list:
+    """(train loss, val loss, seconds) per epoch from the worker's output;
+    raises unless they are ``epochs`` finite rows."""
+    hist = [(float(a), float(b), float(c)) for a, b, c in re.findall(
+        r"Train Loss: ([0-9.eE+-]+|nan|inf), Val Loss: ([0-9.eE+-]+|nan|inf) \(([0-9.]+)s\)",
+        printed)]
+    if len(hist) != epochs or not np.isfinite(hist).all():
+        raise AssertionError(f"training history is not {epochs} finite epochs: {hist}")
+    return hist
+
+
+def csv_row(save_dir, dataset_name) -> dict:
+    """The one row of ``Metrics-trials-<dataset_name>``, by column."""
+    with open(os.path.join(save_dir, f"Metrics-trials-{dataset_name}"), newline="") as f:
+        rows = list(csv.reader(f))
+    if rows[0] != TRIAL_COLUMNS or len(rows) != 2 or len(rows[1]) != len(TRIAL_COLUMNS):
+        raise AssertionError(f"CSV is not one row of the {len(TRIAL_COLUMNS)} columns")
+    return dict(zip(TRIAL_COLUMNS, rows[1]))
+
+
+def trial_argv(trials) -> list:
+    return ["--I_indices", *[str(t[0]) for t in trials],
+            "--beta", *[str(t[1]) for t in trials], "--gamma", *[str(t[2]) for t in trials]]
 
 
 def phase_train(graph, trials, save_dir) -> dict:
@@ -694,8 +838,7 @@ def phase_train(graph, trials, save_dir) -> dict:
             "--maxTime", str(MAX_TIME), "--batch_size", "1", "--lr", "1e-4",
             "--epochs", str(TRAIN_EPOCHS), "--sim", str(LABEL_SIMS), "--spmm", "auto",
             "--save_checkpoint", "--dataset", graph.name, "--path_to_save", save_dir,
-            "--I_indices", *[str(t[0]) for t in trials],
-            "--beta", *[str(t[1]) for t in trials], "--gamma", *[str(t[2]) for t in trials]]
+            *trial_argv(trials)]
     args = worker.build_parser().parse_args([*argv, "--device", "cuda"])
     model, _ = worker.build_model_and_adj(args, graph)
     n_train, n_val = 3, 1  # 0.6 / 0.2 / 0.2 of six trials, int-floor boundaries
@@ -704,20 +847,12 @@ def phase_train(graph, trials, save_dir) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     spmm2.launches = spmm2.backward_launches = sir_step.launches = 0  # the path starts here
-    out = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        rc = worker.main([*argv, "--device", "cuda"], graph=graph)
-    seconds = time.perf_counter() - t0
+    printed, seconds = run_worker(argv, graph)
     total, backward, k2 = spmm2.launches, spmm2.backward_launches, sir_step.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if rc != 0 or k2 != 0:
-        raise AssertionError(f"worker.main returned {rc}; K2 launches {k2} (labels were cached)")
-    hist = [(float(a), float(b), float(c)) for a, b, c in re.findall(
-        r"Train Loss: ([0-9.eE+-]+|nan|inf), Val Loss: ([0-9.eE+-]+|nan|inf) \(([0-9.]+)s\)",
-        out.getvalue())]
-    if len(hist) != TRAIN_EPOCHS or not np.isfinite(hist).all():
-        raise AssertionError(f"training history is not {TRAIN_EPOCHS} finite epochs: {hist}")
+    if k2 != 0:
+        raise AssertionError(f"K2 launches {k2} (labels were cached)")
+    hist = training_history(printed, TRAIN_EPOCHS)
     if not hist[1][0] < hist[0][0]:
         raise AssertionError(f"train loss did not fall: {hist[0][0]} -> {hist[1][0]}")
     steps = TRAIN_EPOCHS * n_train
@@ -727,16 +862,12 @@ def phase_train(graph, trials, save_dir) -> dict:
             f"K1 launches: {total} in all, {backward} backward; expected {EULER_STEPS} "
             f"backward and {fwd_per_batch} forward per training minibatch over {steps}, "
             f"plus {EULER_STEPS} per evaluation pass")
-    with open(os.path.join(save_dir, f"Metrics-trials-{graph.name}"), newline="") as f:
-        rows = list(csv.reader(f))
-    if rows[0] != TRIAL_COLUMNS or len(rows) != 2 or len(rows[1]) != len(TRIAL_COLUMNS):
-        raise AssertionError(f"CSV is not one row of the {len(TRIAL_COLUMNS)} columns")
-    test_loss = float(rows[1][TRIAL_COLUMNS.index("test_loss")])
+    test_loss = float(csv_row(save_dir, graph.name)["test_loss"])
     if not 0.0 < test_loss < 1.0:
         raise AssertionError(f"test_loss {test_loss} in the CSV")
 
     # the saved checkpoint serves
-    ckpt = worker.checkpoint_dir_for(save_dir, args.trial, args.model)
+    ckpt = worker.checkpoint_dir_for(save_dir, args.trial, args.model, args.dataset)
     trained = infer.restore_params(ckpt, device="cuda")
     infer.check_params_match(model, trained)
     _, adj = worker.build_model_and_adj(args, graph, batch_size=2)
@@ -759,17 +890,10 @@ def phase_train(graph, trials, save_dir) -> dict:
     t0 = time.perf_counter()
     loss_cpu, grads_cpu, _ = _loss_and_grads(model_cpu, params, adj_cpu, data, "cpu")
     cpu_s = time.perf_counter() - t0
-    top = max(float(g.abs().max()) for g in grads_cpu.values())
-    # a leaf whose gradient is rounding noise (dec2/b shifts all three logits,
-    # which the softmax ignores) is held to the scale of the largest leaf
-    rel = {k: float((grads_gpu[k] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * top)
-           for k, g in grads_cpu.items()}
-    if abs(loss_gpu - loss_cpu) > STEP_LOSS_ATOL or max(rel.values()) > STEP_GRAD_RTOL:
-        raise AssertionError(
-            f"one step, card vs CPU: loss {loss_gpu} vs {loss_cpu}, gradient leaves {rel}")
+    rel = check_step_against_cpu("train", (loss_gpu, grads_gpu), (loss_cpu, grads_cpu))
 
     # time of one training step at batch 1 (forward, backward, Adam), warm
-    opt = torch.optim.Adam([leaf for v in leaves.values() for leaf in v.values()], lr=1e-4)
+    opt = torch.optim.Adam([leaf for _, leaf in tree_leaves(leaves)], lr=1e-4)
     first = lambda a: torch.as_tensor(a[:1], device="cuda")
     xs = tuple(first(a) for a in (data.s0, data.i0, data.r0, data.beta, data.gamma))
     labels, ones = first(data.labels), torch.ones(1, device="cuda")
@@ -801,6 +925,299 @@ def phase_train(graph, trials, save_dir) -> dict:
     return row
 
 
+def multigraph_graphs() -> list:
+    """Six seeded power-law graphs with the published run's node and
+    directed-edge counts, the enron-size one last."""
+    return [dataclasses.replace(powerlaw_graph(n, e, SEED + 10 + k), name=f"pl{n}")
+            for k, (n, e) in enumerate(MG_GRAPH_SIZES)]
+
+
+@contextlib.contextmanager
+def recorded_matvecs():
+    """Every ``Spmm2Adj.matvec`` call made inside: (x's shape, the plan's
+    edge count, whether autograd was recording)."""
+    record = []
+    matvec = Spmm2Adj.matvec
+
+    def recording(self, x):
+        record.append((tuple(x.shape), self.plan.src.numel(), torch.is_grad_enabled()))
+        return matvec(self, x)
+
+    Spmm2Adj.matvec = recording
+    try:
+        yield record
+    finally:
+        Spmm2Adj.matvec = matvec
+
+
+def _mg_loss_and_grads(model, params, conn, data, idx, device):
+    """Loss of the trials ``idx`` (of one graph) as one training minibatch
+    through the train-side connectivity, and its gradient per leaf."""
+    params = tree_map(lambda t: t.detach().to(device).requires_grad_(True), params)
+    d = _data_to_device(data.take(idx), device)
+    rows = torch.arange(len(idx), device=device)
+    loss, _ = _batch_loss(model, params, conn.adj_fn, conn.node_mask_fn, d, rows,
+                          torch.ones(len(idx), device=device), d["graph_idx"], train=True,
+                          n_view=getattr(conn.adj_fn, "n_view", None))
+    loss.backward()
+    return float(loss.detach()), _grads(params)
+
+
+def phase_multigraph(graphs, save_dir) -> dict:
+    """The published multi-graph configuration through ``cli.worker.main``
+    (depth cut: ``MG_TRIALS_PER_GRAPH`` trials a graph, ``MG_SIMS``
+    simulations a label, ``MG_EPOCHS`` epochs), then the time of a training
+    step by graph and of an evaluation pass, and one training step of
+    GN-ODE, GCN and GIN at the wiki-vote-size graph on the card against the
+    CPU."""
+    names = [g.name for g in graphs]
+    dataset = "+".join(names)
+    n_graphs = len(graphs)
+    n_max = -(-graphs[-1].n_nodes // 8) * 8  # pad_graphs rounds the width up to 8
+    argv = ["--model", "ode_nn", "--hidden", str(MG_HIDDEN), "--method", "euler",
+            "--deltaT", "0.5", "--maxTime", str(MAX_TIME), "--batch_size", str(MG_BATCH),
+            "--lr", "1e-3", "--epochs", str(MG_EPOCHS), "--sim", str(MG_SIMS),
+            "--mg_adj", "auto", "--instances_per_graph", *[str(MG_TRIALS_PER_GRAPH)] * n_graphs,
+            "--dataset", dataset, "--path_to_save", save_dir, "--save_checkpoint"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spmm2.launches = spmm2.backward_launches = sir_step.launches = 0  # the path starts here
+    with recorded_matvecs() as record:
+        printed, seconds = run_worker(argv, graphs)
+    total, backward, k2 = spmm2.launches, spmm2.backward_launches, sir_step.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    if "multigraph adjacency backend: pallas2" not in printed:
+        raise AssertionError("--mg_adj auto did not resolve to K1 above the dense limit")
+    if f"padded to n={n_max}," not in printed:
+        raise AssertionError(f"the batch is not padded to the evaluation graph's {n_max} nodes")
+    hist = training_history(printed, MG_EPOCHS)
+    train = [r for r in record if r[2]]
+    evals = [r for r in record if not r[2]]
+    steps = MG_EPOCHS * (n_graphs - 1)  # one minibatch of MG_BATCH trials per train graph
+    if [r[0] for r in train] != [(MG_BATCH, MG_TRAIN_WIDTH, MG_HIDDEN)] * (steps * EULER_STEPS):
+        raise AssertionError(
+            f"training did not run {steps} minibatches of {EULER_STEPS} K1 applies at "
+            f"[{MG_BATCH}, {MG_TRAIN_WIDTH}, {MG_HIDDEN}]")
+    per_step = [{r[1] for r in train[k * EULER_STEPS:(k + 1) * EULER_STEPS]}
+                for k in range(steps)]
+    train_edges = sorted(g.n_edges for g in graphs[:-1])
+    for epoch in range(MG_EPOCHS):
+        mine = per_step[epoch * (n_graphs - 1):(epoch + 1) * (n_graphs - 1)]
+        if any(len(e) != 1 for e in mine) or sorted(e for s in mine for e in s) != train_edges:
+            raise AssertionError(f"epoch {epoch}: a training minibatch mixed graphs: {mine}")
+    passes = len(evals) // EULER_STEPS
+    if ({r[:2] for r in evals} != {((MG_BATCH, n_max, MG_HIDDEN), graphs[-1].n_edges)}
+            or len(evals) != passes * EULER_STEPS
+            or not MG_EPOCHS + 1 <= passes <= 2 * MG_EPOCHS):
+        raise AssertionError(
+            f"evaluation did not run at [{MG_BATCH}, {n_max}, {MG_HIDDEN}] on the unseen graph "
+            f"in {MG_EPOCHS + 1} to {2 * MG_EPOCHS} passes of {EULER_STEPS} applies")
+    if backward != len(train) or total != len(record) + backward:
+        raise AssertionError(
+            f"K1 launches {total}, {backward} backward; expected {len(record)} forward and "
+            f"{len(train)} backward ({EULER_STEPS} each per minibatch and pass)")
+    if k2 < n_graphs * (MAX_TIME - 1):
+        raise AssertionError(f"K2 launches {k2}: the labels of {n_graphs} graphs were not extracted")
+    row = csv_row(save_dir, dataset)
+    if not 0.0 < float(row["test_loss"]) < 1.0 or row["hidden"] != str(MG_HIDDEN):
+        raise AssertionError(f"CSV row {row}")
+    ckpt = worker.checkpoint_dir_for(save_dir, 1, "ode_nn", dataset)
+    args = worker.build_parser().parse_args(argv + ["--device", "cuda"])
+    model = worker.build_model(args, n_max)
+    infer.check_params_match(model, infer.restore_params(ckpt, device="cuda"))
+
+    # the same trials again (labels and trial parameters are cached now)
+    per_graph = []
+    for name in names:
+        parts = []
+        for key in ("seed", "beta", "gamma"):
+            path = os.path.join(save_dir, f"Experiments-seed2-{name}", f"initial-{key}.pkl")
+            with open(path, "rb") as f:
+                parts.append(pickle.load(f))
+        per_graph.append(list(zip(*parts)))
+    sir_step.launches = 0
+    batch, data = assemble_multigraph_trials(
+        graphs, per_graph, sim=MG_SIMS, max_time=MAX_TIME, device="cuda",
+        label_dirs=[os.path.join(save_dir, f"Experiments-seed2-{name}") for name in names])
+    if sir_step.launches != 0:
+        raise AssertionError("the second assembly was not a pure cache hit")
+    tr, va, te = multigraph_split([MG_TRIALS_PER_GRAPH] * n_graphs)
+    conn = multigraph_auto_fns(batch, device="cuda")
+    if (conn.kind, getattr(conn.adj_fn, "n_view", None)) != ("pallas2", MG_TRAIN_WIDTH):
+        raise AssertionError(f"auto gave {conn.kind} at width {getattr(conn.adj_fn, 'n_view', None)}")
+
+    # wall ms of one training step (forward, backward, Adam) by graph, warm
+    params = tree_map(lambda t: t.requires_grad_(True),
+                      model.init(torch.Generator().manual_seed(SEED), device="cuda"))
+    opt = torch.optim.Adam([leaf for _, leaf in tree_leaves(params)], lr=1e-3)
+    train_epoch = make_train_epoch_fn(model, opt, conn.adj_fn, conn.node_mask_fn,
+                                      n_view=conn.adj_fn.n_view)
+    evaluate = make_eval_fn(model, conn.eval_adj_fn, conn.node_mask_fn)
+    d = _data_to_device(data, "cuda")
+    ones = np.ones((1, MG_BATCH), np.float32)
+
+    def wall_ms(fn, iters=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    step_ms = {}
+    for g_i, g in enumerate(graphs[:-1]):
+        rows = tr[data.graph_idx[tr] == g_i][None, :MG_BATCH]
+        step_ms[g.name] = wall_ms(lambda: train_epoch(params, d, rows, ones))
+    eval_rows = np.concatenate([va, te])[None, :MG_BATCH]
+    eval_ms = wall_ms(lambda: evaluate(params, d, eval_rows, ones))
+
+    # one training step at the wiki-vote-size graph, card against CPU, for
+    # each trainable family (GCN through K1 with normalized weights, GIN
+    # through K1 at its first layer's width 5). One trial, as in the train
+    # phase: at a minibatch of 8 the CPU path's own dec2/w gradient (a float32
+    # sum over 3.4 M terms that cancel) moves by 5e-4 of itself between one
+    # and four threads, five times the tolerance; at one trial by 2e-5
+    wiki_idx = tr[data.graph_idx[tr] == WIKI][:1]
+    gnn = dict(hidden_dim=MG_HIDDEN, penultimate_dim=MG_HIDDEN // 2, window=MAX_TIME, dropout=0.0)
+    step_rel, cpu_s = {}, {}
+    for family, fam_model, gcn_norm in (("ode_nn", model, False),
+                                        ("GCN", TimeUnrolledSIR(GCN(**gnn)), True),
+                                        ("GIN", TimeUnrolledSIR(GIN(**gnn)), False)):
+        start = fam_model.init(torch.Generator().manual_seed(SEED), device="cpu")
+        sides = {}
+        for device in ("cuda", "cpu"):
+            fam_conn = multigraph_auto_fns(batch, gcn_normalized=gcn_norm, device=device)
+            before = (spmm2.launches, spmm2.backward_launches)
+            t0 = time.perf_counter()
+            sides[device] = _mg_loss_and_grads(fam_model, start, fam_conn, data, wiki_idx, device)
+            if device == "cpu":
+                cpu_s[family] = time.perf_counter() - t0
+                continue
+            applies = EULER_STEPS if family == "ode_nn" else MAX_TIME - 1
+            # GIN's first layer aggregates the input features, which take no gradient
+            bwd_applies = applies - 1 if family == "GIN" else applies
+            if (spmm2.launches - before[0], spmm2.backward_launches - before[1]) != (
+                    applies + bwd_applies, bwd_applies):
+                raise AssertionError(f"{family}: the multi-graph step did not go through K1")
+        step_rel[family] = worst_leaf(check_step_against_cpu(
+            f"multigraph {family}", sides["cuda"], sides["cpu"],
+            hold_gradients=family != "GIN"))
+
+    out = {"phase": "multigraph", "graphs": {g.name: [g.n_nodes, g.n_edges] for g in graphs},
+           "hidden": MG_HIDDEN, "batch_size": MG_BATCH, "epochs": MG_EPOCHS,
+           "trials_per_graph": MG_TRIALS_PER_GRAPH, "sims": MG_SIMS, "backend": conn.kind,
+           "train_width": MG_TRAIN_WIDTH, "eval_width": n_max, "seconds": seconds,
+           "history": hist, "csv_row": row, "k1_launches": total,
+           "k1_backward_launches": backward, "k1_per_minibatch_or_pass": EULER_STEPS,
+           "train_minibatches": steps, "evaluation_passes": passes, "k2_launches": k2,
+           "peak_memory_gb": peak_gb, "step_ms_by_graph": step_ms, "eval_pass_ms": eval_ms,
+           "step_grad_rel_err": step_rel, "cpu_step_s": cpu_s,
+           "tol": f"loss {STEP_LOSS_ATOL}, gradient leaves {STEP_GRAD_RTOL} (max-norm; "
+                  f"GIN: reported, loss within {GIN_LOSS_SANITY})",
+           "ok": True}
+    emit(out)
+    return out
+
+
+def phase_baselines(wiki, small, save_dir) -> dict:
+    """The GCN, GIN, DMP and Runge-Kutta baselines on the wiki-vote-size graph
+    through ``cli.worker.main``; a GCN and a GIN step, DMP, and RK (on
+    ``small``, the fb-social-size graph: the CPU takes minutes for the 256
+    substeps a hub of the larger graph asks for) on the card against the CPU."""
+    trials = label_trials(wiki)
+    common = ["--hidden", str(BASELINE_HIDDEN), "--deltaT", "0.5", "--maxTime", str(MAX_TIME),
+              "--batch_size", "1", "--lr", "1e-3", "--epochs", "1", "--sim", str(MG_SIMS),
+              "--dataset", wiki.name, "--path_to_save", save_dir, *trial_argv(trials)]
+    out = {"phase": "baselines", "n": wiki.n_nodes, "edges": wiki.n_edges, "sims": MG_SIMS,
+           "trials": "3 train, 1 val, 2 test", "hidden": BASELINE_HIDDEN}
+
+    def one_row(model):
+        """The CSV row a run of ``--model`` wrote, the file then set aside."""
+        row = csv_row(save_dir, wiki.name)
+        if row["model"] != model or not 0.0 < float(row["test_loss"]) < 1.0:
+            raise AssertionError(f"--model {model}: CSV row {row}")
+        os.remove(os.path.join(save_dir, f"Metrics-trials-{wiki.name}"))
+        return row
+
+    triples = None
+    for family in ("GCN", "GIN"):
+        argv = ["--model", family, "--save_checkpoint", *common]
+        printed, seconds = run_worker(argv, wiki)
+        hist = training_history(printed, 1)
+        row = one_row(family)
+        args = worker.build_parser().parse_args([*argv, "--device", "cuda"])
+        model, adj = worker.build_model_and_adj(args, wiki, batch_size=2)
+        trained = infer.restore_params(
+            worker.checkpoint_dir_for(save_dir, 1, family, wiki.name), device="cuda")
+        infer.check_params_match(model, trained)
+        sb = infer.scenario_batch(wiki.n_nodes, [t[0] for t in trials[:2]],
+                                  [t[1] for t in trials[:2]], [t[2] for t in trials[:2]])
+        served = infer.predict_summaries(model, trained, adj, *sb)
+        if len(served) != 2 or not all(np.isfinite(list(r.values())).all() for r in served):
+            raise AssertionError(f"the trained {family} checkpoint did not score")
+        if triples is None:
+            triples = load_or_extract_labels_many(
+                wiki, trials[:1], sim=MG_SIMS, max_time=MAX_TIME, save_dir=save_dir,
+                device="cuda")
+        data = build_trial_data(wiki.n_nodes, [trials[0][0]], [trials[0][1]], [trials[0][2]],
+                                triples)
+        start = model.init(torch.Generator().manual_seed(SEED), device="cpu")
+        args_cpu = worker.build_parser().parse_args([*argv, "--device", "cpu"])
+        _, adj_cpu = worker.build_model_and_adj(args_cpu, wiki)
+        card = _loss_and_grads(model, start, adj, data, "cuda")[:2]
+        t0 = time.perf_counter()
+        cpu = _loss_and_grads(model, start, adj_cpu, data, "cpu")[:2]
+        out[family] = {"seconds": seconds, "history": hist, "test_loss": float(row["test_loss"]),
+                       "adjacency": type(adj).__name__, "served_scenarios": len(served),
+                       "step_grad_rel_err": worst_leaf(check_step_against_cpu(
+                           family, card, cpu, hold_gradients=family != "GIN")),
+                       "cpu_step_s": time.perf_counter() - t0}
+
+    # DMP: the worker's run, and run_many on the card against run on the CPU
+    _, out["dmp_seconds"] = run_worker(["--model", "dmp", *common], wiki)
+    row = one_row("dmp")
+    out["dmp_test_loss"], out["dmp_inference_s"] = float(row["test_loss"]), float(row["n_ode_time"])
+    dmp = DMPSIR.from_graph(wiki)
+    many = dmp.run_many([t[0] for t in trials], [t[1] for t in trials], [t[2] for t in trials],
+                        max_time=MAX_TIME, device="cuda").cpu()
+    ones = torch.stack([dmp.run(*t, max_time=MAX_TIME, device="cpu") for t in trials])
+    out["dmp_max_abs_err_vs_cpu"] = float((many - ones).abs().max())
+    if (many.shape != (len(trials), MAX_TIME, wiki.n_nodes, 3)
+            or not out["dmp_max_abs_err_vs_cpu"] <= DMP_ATOL
+            or float((many.sum(-1) - 1).abs().max()) > 1e-5):
+        raise AssertionError(f"DMP on the card vs the CPU: {out['dmp_max_abs_err_vs_cpu']}")
+
+    # RK: the worker's run at this size, and the card against the CPU on the
+    # smaller graph
+    _, out["rk_seconds"] = run_worker(["--model", "rk", *common], wiki)
+    row = one_row("rk")
+    out["rk_test_loss"], out["rk_inference_s"] = float(row["test_loss"]), float(row["rk_time"])
+    out["rk_substeps"] = classical.auto_substeps(
+        wiki, [t[1] for t in trials[4:]], max(t[2] for t in trials[4:]), 0.5)
+    rk_trials = label_trials(small)[:2]
+    rk = lambda device: sir_classical_batch(
+        small, [t[0] for t in rk_trials], [t[1] for t in rk_trials], [t[2] for t in rk_trials],
+        max_time=MAX_TIME, device=device)
+    card = rk("cuda")
+    t0 = time.perf_counter()
+    cpu = rk("cpu")
+    out["rk_cpu_s"], out["rk_compared_n"] = time.perf_counter() - t0, small.n_nodes
+    out["rk_compared_substeps"] = classical.auto_substeps(
+        small, [t[1] for t in rk_trials], max(t[2] for t in rk_trials), 0.5)
+    out["rk_max_abs_err_vs_cpu"] = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu))
+    if (not out["rk_max_abs_err_vs_cpu"] <= RK_ATOL
+            or float(np.abs(sum(card) - 1).max()) > 1e-4 or not np.isfinite(card[0]).all()):
+        raise AssertionError(f"RK on the card vs the CPU: {out['rk_max_abs_err_vs_cpu']}")
+    out["tol"] = (f"step: loss {STEP_LOSS_ATOL}, gradient leaves {STEP_GRAD_RTOL} (GIN: reported, "
+                  f"loss within {GIN_LOSS_SANITY}); DMP {DMP_ATOL}; RK {RK_ATOL}")
+    out["ok"] = True
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -815,26 +1232,40 @@ def main() -> int:
     graph = powerlaw_graph(ENRON_NODES, ENRON_DIRECTED_EDGES, SEED)
     trials = label_trials(graph)
     chunk = label_chunk(graph)
-    k1 = phase_kernel(graph)
+    mg_graphs = multigraph_graphs()
+    k1, k1_mg = phase_kernel(graph, mg_graphs)
     k2 = phase_kernel_k2(graph, trials[:chunk])
-    k1b = phase_kernel_bwd(graph)
+    k1b, k1b_mg = phase_kernel_bwd(graph, mg_graphs)
     serve = phase_serve(graph)
     with tempfile.TemporaryDirectory() as save_dir:
         labels = phase_labels(graph, trials, save_dir, chunk)
         train = phase_train(graph, trials, save_dir)
-    kernel = lambda name, source, replaces, launches, row: {
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "case": row["case"], "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+    del graph
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as save_dir:
+        mg = phase_multigraph(mg_graphs, save_dir)
+    with tempfile.TemporaryDirectory() as save_dir:
+        phase_baselines(mg_graphs[WIKI], mg_graphs[FB_SOCIAL], save_dir)
+    times = lambda row: {
+        "case": row["case"], "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+    # launches: those of the main paths (serving, labels, single-graph and
+    # multi-graph training); `cases`: the same kernel at the multi-graph shapes
+    kernel = lambda name, source, replaces, launches, row, more=(): {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, **times(row), "cases": [times(r) for r in more]}
+    forward = lambda phase: phase["k1_launches"] - phase["k1_backward_launches"]
     emit({"kernels": [
         kernel("spmm2", "gn_ode_sir_tpu_torch/csrc/spmm2.cu",
                "gn_ode_sir_tpu/ops/pallas_spmm2.py:119",
-               serve["k1_launches"] + train["k1_launches"] - train["k1_backward_launches"], k1),
+               serve["k1_launches"] + forward(train) + forward(mg), k1, k1_mg),
         kernel("spmm2_bwd", "gn_ode_sir_tpu_torch/csrc/spmm2.cu",
-               "gn_ode_sir_tpu/ops/pallas_spmm2.py:239", train["k1_backward_launches"], k1b),
+               "gn_ode_sir_tpu/ops/pallas_spmm2.py:239",
+               train["k1_backward_launches"] + mg["k1_backward_launches"], k1b, k1b_mg),
         kernel("sir_step", "gn_ode_sir_tpu_torch/csrc/sir_step.cu",
-               "gn_ode_sir_tpu/sim/pallas_step.py:36", labels["k2_launches"], k2)]})
+               "gn_ode_sir_tpu/sim/pallas_step.py:36",
+               labels["k2_launches"] + mg["k2_launches"], k2)]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

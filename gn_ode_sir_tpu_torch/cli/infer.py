@@ -1,5 +1,5 @@
-"""Serving entry point: score what-if scenarios with trained GN-ODE params
-(port of ``gn_ode_sir_tpu.cli.infer``).
+"""Serving entry point: score what-if scenarios with trained GN-ODE, GCN or
+GIN params (port of ``gn_ode_sir_tpu.cli.infer``).
 
   python -m gn_ode_sir_tpu_torch.cli.infer --device cuda \
       --ckpt <dir holding serve.pt> \
@@ -31,6 +31,7 @@ from gn_ode_sir_tpu_torch.cli.worker import (
     parse_i_indices,
     resolve_device,
 )
+from gn_ode_sir_tpu_torch.train.checkpoint import tree_leaves
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -115,20 +116,15 @@ def restore_params(ckpt: str, *, device) -> dict:
     return _restore(ckpt, device=device)
 
 
-def _leaf_shapes(tree, prefix=()):
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            yield from _leaf_shapes(v, prefix + (k,))
-        else:
-            yield "/".join(prefix + (k,)), tuple(v.shape)
+def _leaf_shapes(tree):
+    return [(path, tuple(leaf.shape)) for path, leaf in tree_leaves(tree)]
 
 
 def check_params_match(model, params) -> None:
     """Fail loudly when params don't fit the declared architecture (wrong
     --hidden/--model, or a K-stacked ensemble checkpoint)."""
-    expect = list(_leaf_shapes(model.init(torch.Generator().manual_seed(0), device="cpu")))
-    got = list(_leaf_shapes(params)) if isinstance(params, dict) else []
+    expect = _leaf_shapes(model.init(torch.Generator().manual_seed(0), device="cpu"))
+    got = _leaf_shapes(params) if isinstance(params, dict) else []
     if expect != got:
         raise SystemExit(
             "checkpoint params do not match the declared architecture "
@@ -190,7 +186,7 @@ def _chunked(call, arrays, dispatch_batch, batch_axis):
 
 def _dispatch(model, params, adj, arrays, reduce_fn=None) -> np.ndarray:
     """One device dispatch: numpy scenario arrays in, numpy out."""
-    dev = params["enc"]["w"].device
+    dev = next(leaf for _, leaf in tree_leaves(params)).device
     with torch.inference_mode():
         xs = [torch.as_tensor(a, device=dev) for a in arrays]
         out = model.predict(params, adj, *xs)

@@ -7,11 +7,16 @@ worker plus ``--device``:
       --I_indices "[25, 18]" "[1, 27]" --beta 0.47 0.26 --gamma 0.31 0.33 \\
       --path_to_save ./experiments/karate
 
-Ported: ``--model ode_nn`` on a single graph, with and without
-``--out_of_dist`` — Monte-Carlo labels on cache miss, training, the
-reference-schema CSV row, and ``--save_checkpoint`` (a ``serve.pt`` that
-``cli.infer --ckpt`` scores). The model and adjacency construction is shared
-with ``cli.infer``. Everything else the JAX worker does raises
+Ported: ``--model ode_nn|GCN|GIN`` on a single graph, with and without
+``--out_of_dist``, and on a ``+``-joined multi-graph dataset (train on all
+graphs but the last, evaluate on the unseen last one; ``--mg_adj``,
+``--mg_precision``, ``--instances_per_graph``) — Monte-Carlo labels on cache
+miss, training, the reference-schema CSV row, and ``--save_checkpoint`` (a
+``serve.pt`` that ``cli.infer --ckpt`` scores); the closed-form baselines
+``--model dmp`` and ``--model rk``, and ``--rk_baseline``, which fills the
+``loss_baseline`` and ``rk_time`` columns. The model and adjacency
+construction is shared with ``cli.infer``. What is left (``--ensemble``,
+``--node_split``, periodic checkpoints and resume) raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
@@ -20,6 +25,7 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
+import time
 
 import numpy as np
 import torch
@@ -128,48 +134,81 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_model(args, n_nodes, *, batch_size=None, device=None):
-    """The model-construction switch (GN-ODE only so far). ``device`` sizes
-    the solver memory policy (default: ``args.device``); the policy's unroll
-    factor has no counterpart in the port's Python-loop solver."""
-    from gn_ode_sir_tpu_torch.models.gnode import GNODE, solver_policy
+    """The one model-construction switch for every trainable family, used by
+    the single-graph path, the multigraph path (``n_nodes`` = the padded
+    batch width) and serving. ``device`` sizes the GN-ODE solver memory
+    policy (default: ``args.device``); the policy's unroll factor has no
+    counterpart in the port's Python-loop solver."""
+    from gn_ode_sir_tpu_torch.models import GCN, GIN, GNODE, TimeUnrolledSIR
+    from gn_ode_sir_tpu_torch.models.gnode import solver_policy
 
-    if args.model in ("GCN", "GIN"):
-        raise NotImplementedError(
-            f"--model {args.model} is not ported yet (ROADMAP.md Queue 1: models/gcn.py, gin.py)")
-    if args.model != "ode_nn":
+    if args.model == "ode_nn":
+        adjoint, _ = solver_policy(
+            n_nodes, args.hidden,
+            args.batch_size if batch_size is None else batch_size,
+            args.maxTime, args.deltaT,
+            adjoint=args.adjoint, unroll=args.solver_unroll,
+            device=args.device if device is None else device,
+        )
+        return GNODE(
+            hidden=args.hidden,
+            max_time=args.maxTime,
+            delta_t=args.deltaT,
+            method=args.method,
+            adjoint=adjoint,
+            compute_dtype=args.gnode_dtype,
+        )
+    if args.model not in ("GCN", "GIN"):
         raise ValueError(f"--model {args.model} is not a trainable model family")
-    adjoint, _ = solver_policy(
-        n_nodes, args.hidden,
-        args.batch_size if batch_size is None else batch_size,
-        args.maxTime, args.deltaT,
-        adjoint=args.adjoint, unroll=args.solver_unroll,
-        device=args.device if device is None else device,
-    )
-    return GNODE(
-        hidden=args.hidden,
-        max_time=args.maxTime,
-        delta_t=args.deltaT,
-        method=args.method,
-        adjoint=adjoint,
-        compute_dtype=args.gnode_dtype,
-    )
+    gnn = GCN if args.model == "GCN" else GIN
+    return TimeUnrolledSIR(
+        gnn(input_dim=5, hidden_dim=args.hidden,
+            penultimate_dim=max(args.hidden // 2, 1), window=args.maxTime))
 
 
 def build_model_and_adj(args, g, *, batch_size=None, device=None):
     """Model + single-graph adjacency on ``device`` (default ``args.device``),
-    exactly as the worker builds them; shared with ``cli.infer``."""
-    from gn_ode_sir_tpu_torch.ops.adjacency import adjacency_from_graph
+    exactly as the worker builds them; shared with ``cli.infer``.
+
+    GN-ODE takes ``--spmm``. GCN takes the normalized D^-1/2 (A+I) D^-1/2 as
+    a dense matrix up to ``DENSE_NODE_THRESHOLD`` nodes and above it K1 with
+    the normalized weights (where the JAX package takes its COO segment sum:
+    the port takes for GCN what its ``auto`` takes for GN-ODE there). GIN
+    takes the raw-sum ``auto`` adjacency."""
+    from gn_ode_sir_tpu_torch.ops import DENSE_NODE_THRESHOLD, gcn_norm_edges
+    from gn_ode_sir_tpu_torch.ops.adjacency import DenseAdj, adjacency_from_graph
+    from gn_ode_sir_tpu_torch.ops.spmm2 import Spmm2Adj
 
     device = resolve_device(args.device) if device is None else torch.device(device)
     model = build_model(args, g.n_nodes, batch_size=batch_size, device=device)
-    adj = adjacency_from_graph(g, kind=args.spmm, device=device)
+    if args.model == "ode_nn":
+        adj = adjacency_from_graph(g, kind=args.spmm, device=device)
+    elif args.model == "GCN":
+        src, dst, w = gcn_norm_edges(g)
+        if g.n_nodes <= DENSE_NODE_THRESHOLD:
+            a = np.zeros((g.n_nodes, g.n_nodes), np.float32)
+            a[dst, src] = w
+            adj = DenseAdj(torch.as_tensor(a, device=device))
+        else:
+            adj = Spmm2Adj.from_edges(src, dst, g.n_nodes, w, device=device)
+    else:  # GIN
+        adj = adjacency_from_graph(g, kind="auto", device=device)
     return model, adj
 
 
-def checkpoint_dir_for(path_to_save: str, trial, model: str) -> str:
+def checkpoint_dir_for(path_to_save: str, trial, model: str, dataset: str,
+                       ensemble: int = 0) -> str:
     """The checkpoint directory a worker run with these arguments uses
-    (``--save_checkpoint`` writes ``serve.pt`` there)."""
-    return os.path.join(path_to_save, f"ckpt-trial{trial}-{model}")
+    (``--save_checkpoint`` writes ``serve.pt`` there). A ``+``-joined
+    dataset's directory carries the graph names: such runs share
+    ``path_to_save``. Ensemble runs (K-stacked params) get their own."""
+    stem = os.path.basename(dataset)
+    ens = f"-ens{ensemble}" if ensemble and ensemble > 1 else ""
+    if "+" in stem:
+        names = "-".join(stem.split("+"))
+        return os.path.join(
+            path_to_save, f"ckpt-trial{trial}-{model}{ens}-mg-{names}")
+    return os.path.join(path_to_save, f"ckpt-trial{trial}-{model}{ens}")
 
 
 def load_experiment(args, graph=None):
@@ -253,13 +292,13 @@ def get_splits(args, n_trials: int):
     return d["train"], d["val"], test
 
 
-def _save_result_rows(cfg, dataset_name, res):
-    """Write the run's CSV row. ``loss_baseline`` and ``rk_time`` are 0: the
-    RK mean-field baseline that fills them is not ported yet."""
+def _save_result_rows(cfg, dataset_name, res, loss_baseline=0.0, rk_time=0.0):
+    """Write the run's CSV row. ``loss_baseline`` and ``rk_time`` come from
+    the RK mean-field baseline (``--rk_baseline``), else 0."""
     from gn_ode_sir_tpu_torch.utils.csvsink import save_trial_to_csv
 
     save_trial_to_csv(cfg, dataset_name, res.best_epoch, res.best_val_loss,
-                      res.test_loss, 0.0, res.test_time, 0.0)
+                      res.test_loss, loss_baseline, res.test_time, rk_time)
 
 
 def run_trainable(args, g, data, splits):
@@ -300,7 +339,201 @@ def _save_serve_checkpoint(args, res):
     from gn_ode_sir_tpu_torch.train.checkpoint import save_params
 
     best = res.best_params if res.best_params is not None else res.params
-    save_params(checkpoint_dir_for(args.path_to_save, args.trial, args.model), best)
+    save_params(checkpoint_dir_for(args.path_to_save, args.trial, args.model, args.dataset),
+                best)
+
+
+def _test_seed_sets(data, te, n_nodes):
+    return [np.nonzero(data.i0[i][:n_nodes])[0] for i in te]
+
+
+def run_dmp(args, g, data, splits):
+    """Closed-form DMP inference on the test split, all its trials in one
+    batched recursion on ``args.device``."""
+    from gn_ode_sir_tpu_torch.models import DMPSIR
+
+    _, _, te = splits
+    dmp = DMPSIR.from_graph(g)
+    t0 = time.time()
+    m = dmp.run_many(
+        _test_seed_sets(data, te, g.n_nodes),
+        [float(data.beta[i]) for i in te], [float(data.gamma[i]) for i in te],
+        max_time=args.maxTime, device=resolve_device(args.device),
+    ).cpu().numpy()  # [B, T, n, 3]
+    losses = [np.abs(m[k, 1:] - data.labels[i][1:]).mean() for k, i in enumerate(te)]
+    dt = time.time() - t0
+    test_loss = float(np.mean(losses))
+    print(f"DMP baseline Loss: {test_loss:.5f}")
+    print(f"Time inference baseline: {dt:.5f}")
+    return test_loss, dt
+
+
+def run_rk(args, g, data, te, label=""):
+    """Classical mean-field baseline on the trials ``te`` of graph ``g``
+    (whose labels may be padded beyond its nodes), integrated together."""
+    from gn_ode_sir_tpu_torch.sim import sir_classical_batch
+
+    t0 = time.time()
+    i_b, s_b, r_b = sir_classical_batch(
+        g, _test_seed_sets(data, te, g.n_nodes),
+        [float(data.beta[i]) for i in te], [float(data.gamma[i]) for i in te],
+        delta_t=args.deltaT, max_time=args.maxTime, device=resolve_device(args.device),
+    )
+    preds = np.stack([s_b, i_b, r_b], -1)  # [B, T, n, 3]
+    losses = [np.abs(preds[k] - data.labels[i][:, : g.n_nodes]).mean()
+              for k, i in enumerate(te)]
+    dt = time.time() - t0
+    loss = float(np.mean(losses))
+    print(f"Runge-kutta baseline Loss{label}: {loss:.5f}")
+    print(f"Time inference baseline: {dt:.5f}")
+    return loss, dt
+
+
+def _trial_pickles(label_dir):
+    return [os.path.join(label_dir, f"initial-{k}.pkl") for k in ("seed", "beta", "gamma")]
+
+
+def run_multigraph(args, graphs=None):
+    """'+'-joined datasets: train on G-1 graphs, evaluate on the unseen last
+    graph. ``graphs``: already-built :class:`Graph` objects that stand for
+    ``--dataset`` (loading needs networkx)."""
+    from gn_ode_sir_tpu_torch.train import (
+        assemble_multigraph_trials,
+        fit,
+        multigraph_auto_fns,
+        multigraph_split,
+    )
+    from gn_ode_sir_tpu_torch.utils.config import ExperimentConfig
+
+    if args.model not in ("ode_nn", "GCN", "GIN"):
+        raise SystemExit(
+            f"--model {args.model} is single-graph only; multi-graph datasets "
+            "support ode_nn/GCN/GIN (the dmp/rk baselines are single-graph)"
+        )
+    if args.out_of_dist:
+        # refuse rather than silently train the ordinary protocol: the
+        # gamma-binned split is a single-graph protocol
+        raise SystemExit(
+            "--out_of_dist is a single-graph protocol; it is not defined for "
+            "'+'-joined multi-graph datasets"
+        )
+
+    if graphs is None:
+        from gn_ode_sir_tpu_torch.graphs import load_graphs
+
+        graphs = load_graphs(args.dataset)
+    device = resolve_device(args.device)
+    names = [g.name for g in graphs]
+    counts = args.instances_per_graph or ([36] * (len(graphs) - 1) + [120])
+    if len(counts) != len(graphs):
+        raise SystemExit("--instances_per_graph must give one count per graph")
+
+    # trial parameters: provided flat via the reference argv encoding, or sampled
+    i_indices = parse_i_indices(args.I_indices) if args.I_indices != ["12"] else None
+    if i_indices is not None and not (
+        len(args.beta) == len(args.gamma) == len(i_indices)
+    ):
+        raise SystemExit(
+            f"--I_indices/--beta/--gamma must align one value per trial: got "
+            f"{len(i_indices)} seed sets, {len(args.beta)} beta, "
+            f"{len(args.gamma)} gamma"
+        )
+    if i_indices is not None and len(i_indices) != sum(counts):
+        raise SystemExit(
+            f"--I_indices gives {len(i_indices)} trials but "
+            f"--instances_per_graph sums to {sum(counts)}"
+        )
+    # per-graph label dirs, reference layout
+    label_dirs = []
+    for name in names:
+        d = os.path.join(args.path_to_save, f"Experiments-seed2-{name}")
+        os.makedirs(d, exist_ok=True)
+        label_dirs.append(d)
+
+    # Per-graph trial params are persisted in the reference's
+    # initial-{seed,beta,gamma}.pkl layout and reloaded on rerun, so repeat
+    # runs train and evaluate on identical trial sets and reuse the label
+    # cache — only the model init varies (--init_seed). Sampling is seeded
+    # per (seed, graph), so a missing graph's params regenerate
+    # independently of the others.
+    per_graph_params = []
+    pos = 0
+    for g_i, g in enumerate(graphs):
+        pickles = _trial_pickles(label_dirs[g_i])
+        if i_indices is not None:
+            trials = [
+                (i_indices[p], args.beta[p], args.gamma[p])
+                for p in range(pos, pos + counts[g_i])
+            ]
+            pos += counts[g_i]
+        elif os.path.exists(pickles[0]):
+            ii, bb, gg = [], [], []
+            for path, into in zip(pickles, (ii, bb, gg)):
+                with open(path, "rb") as f:
+                    into.extend(pickle.load(f))
+            if len(ii) < counts[g_i]:
+                raise SystemExit(
+                    f"{pickles[0]} pins {len(ii)} trials < requested {counts[g_i]}"
+                )
+            trials = [(list(ii[k]), float(bb[k]), float(gg[k]))
+                      for k in range(counts[g_i])]
+        else:
+            rng = np.random.default_rng([args.seed, g_i])
+            trials = [(
+                [int(x) for x in rng.choice(g.n_nodes, 2, replace=False)],
+                float(rng.uniform(0.1, 0.5)),
+                float(rng.uniform(0.1, 0.5)),
+            ) for _ in range(counts[g_i])]
+            for k, path in enumerate(pickles):
+                with open(path, "wb") as f:
+                    pickle.dump([t[k] for t in trials], f)
+        per_graph_params.append(trials)
+
+    batch, data = assemble_multigraph_trials(
+        graphs, per_graph_params, label_dirs=label_dirs,
+        sim=args.sim, max_time=args.maxTime, seed=args.seed, device=device,
+    )
+    print(f"graphs: {names}, padded to n={batch.n_max}, e={batch.e_max}")
+    tr, va, te = multigraph_split(counts)
+
+    # shared switch with the single-graph worker and serving restore
+    # (n_nodes = the padded batch width drives the solver memory policy)
+    model = build_model(args, batch.n_max, device=device)
+    # backend dispatch by scale: dense / coo / K1 with grouped batches above
+    # the dense limit — the same path library users get
+    conn = multigraph_auto_fns(
+        batch, gcn_normalized=args.model == "GCN", eval_graph=-1, kind=args.mg_adj,
+        precision=args.mg_precision, device=device)
+    print(f"multigraph adjacency backend: {conn.kind}")
+
+    params = model.init(torch.Generator().manual_seed(args.init_seed), device=device)
+    res = fit(
+        model, lambda leaves: torch.optim.Adam(leaves, lr=args.lr), params,
+        data, tr, va, te, **conn.fit_kwargs(), seed=args.init_seed,
+        epochs=args.epochs, batch_size=args.batch_size,
+        eval_batch_size=args.eval_batch_size, verbose=True, log_every=args.log_every,
+    )
+
+    # RK mean-field baseline on the UNSEEN graph's test trials
+    loss_baseline, rk_time = 0.0, 0.0
+    if args.rk_baseline:
+        loss_baseline, rk_time = run_rk(args, graphs[-1], data, te,
+                                        label=f" (unseen {names[-1]})")
+    cfg = ExperimentConfig(
+        model=args.model, hidden=args.hidden, lr=args.lr, epochs=args.epochs,
+        batch_size=args.batch_size, beta=list(args.beta), gamma=list(args.gamma),
+        i_indices=i_indices or [], delta_t=args.deltaT, max_time=args.maxTime,
+        sim=args.sim, dataset=args.dataset, path_to_save=args.path_to_save,
+        train_val_test_ratio=list(args.train_val_test_ratio), trial=args.trial,
+    )
+    _save_result_rows(cfg, "+".join(names), res, loss_baseline, rk_time)
+    print(f"Test Loss (unseen graph {names[-1]}): {res.test_loss:.5f} at epoch: "
+          f"{res.best_epoch:03d}")
+    if args.save_checkpoint:
+        # the params are graph-agnostic, so this checkpoint serves ANY graph
+        # through cli/infer.py
+        _save_serve_checkpoint(args, res)
+    return 0
 
 
 # ExperimentConfig field -> CLI flag name (reference argv naming kept)
@@ -344,16 +577,11 @@ def _apply_config_defaults(parser, argv):
 
 
 def _refuse_unported(args) -> None:
-    """Everything the JAX worker does beyond single-graph ``--model ode_nn``
-    raises here, naming the ROADMAP.md item that ports it."""
+    """What the JAX worker does and the port does not yet raises here,
+    naming the ROADMAP.md item that ports it."""
     unported = [
         (args.ensemble > 1, "--ensemble", "train/ensemble.py"),
-        ("+" in os.path.basename(args.dataset), "'+'-joined multi-graph datasets",
-         "train/multigraph.py"),
         (args.node_split, "--node_split", "train/node_split.py"),
-        (args.model == "dmp", "--model dmp", "models/dmp.py"),
-        (args.model == "rk", "--model rk", "sim/classical.py"),
-        (args.rk_baseline, "--rk_baseline", "sim/classical.py"),
         (args.checkpoint_every or args.resume or args.die_at_epoch is not None
          or args.auto_checkpoint != AUTO_CHECKPOINT_DEFAULT,
          "--checkpoint_every/--resume/--auto_checkpoint/--die_at_epoch",
@@ -367,10 +595,11 @@ def _refuse_unported(args) -> None:
 
 def main(argv=None, graph=None):
     """Run one experiment. ``graph``: an already-built :class:`Graph` that
-    stands for ``--dataset`` (for callers on a machine without networkx)."""
+    stands for ``--dataset`` (for callers on a machine without networkx), or
+    the list of them for a ``+``-joined dataset."""
     from gn_ode_sir_tpu_torch.cli import apply_data_root_default
     from gn_ode_sir_tpu_torch.utils.config import ExperimentConfig
-    from gn_ode_sir_tpu_torch.utils.csvsink import csv_trials
+    from gn_ode_sir_tpu_torch.utils.csvsink import csv_trials, save_trial_to_csv
 
     apply_data_root_default()
     parser = build_parser()
@@ -383,6 +612,9 @@ def main(argv=None, graph=None):
     # full-f32 matmuls: TF32 would quietly change every dense A·Z and linear
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    if "+" in os.path.basename(args.dataset):
+        return run_multigraph(args, graph)
 
     g, i_indices, data = load_experiment(args, graph)
     print(f"nodes {g.n_nodes}\nedges {g.n_edges // 2}")
@@ -398,10 +630,22 @@ def main(argv=None, graph=None):
     )
     dataset_name = g.name
 
+    if args.model == "dmp":
+        test_loss, dt = run_dmp(args, g, data, splits)
+        save_trial_to_csv(cfg, dataset_name, 0, 0.0, test_loss, 0.0, dt, 0.0)
+        return 0
+    if args.model == "rk":
+        loss, dt = run_rk(args, g, data, splits[2])
+        save_trial_to_csv(cfg, dataset_name, 0, 0.0, loss, loss, dt, dt)
+        return 0
+
     res = run_trainable(args, g, data, splits)
+    loss_baseline, rk_time = 0.0, 0.0
+    if args.rk_baseline:
+        loss_baseline, rk_time = run_rk(args, g, data, splits[2])
 
     if not args.out_of_dist:
-        _save_result_rows(cfg, dataset_name, res)
+        _save_result_rows(cfg, dataset_name, res, loss_baseline, rk_time)
     else:
         # out-of-dist runs write the two extra CSVs:
         # (1) per-test-trial losses, header = test trial indices

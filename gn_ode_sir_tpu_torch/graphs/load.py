@@ -42,3 +42,16 @@ def load_graph(path: str, n_random: int = 50, seed: int = 0) -> Graph:
     largest_cc = max(nx.connected_components(G), key=len)
     G = G.subgraph(largest_cc)
     return graph_from_networkx(G, name=_stem(path))
+
+
+def load_graphs(dataset: str, root: str | None = None) -> list[Graph]:
+    """Load a '+'-joined multi-graph dataset string.
+
+    ``dataset`` may be either ``'./real_graphs/a+b+c'`` (reference style) or
+    a bare ``'a+b+c'`` with ``root`` given.
+    """
+    if root is None:
+        root, names = os.path.split(dataset)
+    else:
+        names = dataset
+    return [load_graph(os.path.join(root, name)) for name in names.split("+")]

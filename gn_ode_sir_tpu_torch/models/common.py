@@ -30,3 +30,15 @@ def layer_norm(scale, bias, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mu = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, unbiased=False, keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def dropout(generator: torch.Generator | None, x: torch.Tensor, rate: float,
+            train: bool) -> torch.Tensor:
+    """Inverted dropout (torch ``F.dropout`` semantics): identity unless
+    training with a positive rate and a generator. The mask is drawn from
+    ``generator`` (on its device) and moved to ``x``'s. Shared by GCN/GIN."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep, 0.0)

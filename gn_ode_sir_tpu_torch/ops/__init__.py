@@ -1,14 +1,17 @@
 """Kernel layer: message-passing primitives (port of ``gn_ode_sir_tpu.ops``).
 
-- ``segment_sum`` — an ``index_add_`` over edge lists,
+- ``segment_sum`` / ``segment_prod`` — ``index_add_`` / ``scatter_reduce_``
+  over edge lists,
 - ``spmm_dense`` / ``spmm_coo`` / ``spmm_coo_batched`` — plain SpMM,
+- ``gcn_norm_edges`` — the GCN baseline's normalised edge weights (host),
 - ``spmm2`` (``ops.spmm2``) — K1, the hand-written CUDA SpMM for the
   large-graph path, built from ``csrc/`` by ``ops._kernels`` at first use.
 """
 
-from gn_ode_sir_tpu_torch.ops.segment import segment_sum
+from gn_ode_sir_tpu_torch.ops.segment import segment_prod, segment_sum
 from gn_ode_sir_tpu_torch.ops.spmm import (
     DENSE_NODE_THRESHOLD,
+    gcn_norm_edges,
     spmm_coo,
     spmm_coo_batched,
     spmm_dense,
@@ -16,8 +19,10 @@ from gn_ode_sir_tpu_torch.ops.spmm import (
 
 __all__ = [
     "segment_sum",
+    "segment_prod",
     "spmm_coo",
     "spmm_coo_batched",
     "spmm_dense",
+    "gcn_norm_edges",
     "DENSE_NODE_THRESHOLD",
 ]

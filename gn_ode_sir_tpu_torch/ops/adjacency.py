@@ -4,7 +4,8 @@ Message passing is ``adj.matvec(x)`` with ``x`` of shape [B, n, h]; every
 backend returns float32.
 
 - :class:`DenseAdj` — a matmul with the materialized adjacency (f32 or bf16).
-- :class:`CooAdj`   — gather + ``index_add_`` over a shared [E] edge list.
+- :class:`CooAdj`   — gather + ``index_add_`` over a shared [E] edge list, or
+  over per-sample padded [B, E] edge rows (heterogeneous multi-graph batches).
 - :class:`~gn_ode_sir_tpu_torch.ops.spmm2.Spmm2Adj` — the CUDA kernel K1.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from gn_ode_sir_tpu_torch.ops.spmm import DENSE_NODE_THRESHOLD, spmm_coo_batched, spmm_dense
@@ -37,7 +39,8 @@ class DenseAdj:
 
 @dataclasses.dataclass(frozen=True)
 class CooAdj:
-    """COO adjacency with ``src``/``dst`` [E] shared across the batch."""
+    """COO adjacency. ``src``/``dst`` are [E] (shared across the batch) or
+    [B, E] (per-sample, padded; padding edges carry ``w == 0``)."""
 
     src: torch.Tensor
     dst: torch.Tensor
@@ -45,7 +48,18 @@ class CooAdj:
     n_nodes: int
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return spmm_coo_batched(self.src, self.dst, x, self.n_nodes, self.w)
+        if self.src.dim() == 1:
+            return spmm_coo_batched(self.src, self.dst, x, self.n_nodes, self.w)
+        # per-sample edges: sample b's rows live at offset b * n of the
+        # flattened [B * n, h] state, so one gather and one index_add_ serve
+        # the whole batch
+        b, n, h = x.shape
+        offset = torch.arange(b, device=x.device)[:, None] * n
+        msgs = x.reshape(b * n, h)[(self.src + offset).reshape(-1)]
+        if self.w is not None:
+            msgs = msgs * self.w.reshape(-1, 1)
+        out = torch.zeros((b * n, h), dtype=x.dtype, device=x.device)
+        return out.index_add_(0, (self.dst + offset).reshape(-1), msgs).reshape(b, n, h)
 
 
 def adjacency_from_graph(graph, *, kind: str = "auto", device):
@@ -72,3 +86,11 @@ def adjacency_from_graph(graph, *, kind: str = "auto", device):
             device=device)
     raise NotImplementedError(
         "the 'ell' adjacency is not ported yet (ROADMAP.md Queue 1: ops/ell.py)")
+
+
+def adjacency_from_batch(batch, graph_idx, *, device) -> CooAdj:
+    """Per-trial CooAdj rows for a padded multi-graph batch (gather only)."""
+    gi = np.asarray(graph_idx)
+    as_t = lambda a: torch.as_tensor(a[gi], device=device)
+    return CooAdj(as_t(batch.src).long(), as_t(batch.dst).long(), as_t(batch.edge_w),
+                  batch.n_max)

@@ -9,6 +9,7 @@ gather + ``index_add_`` form.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from gn_ode_sir_tpu_torch.ops.segment import segment_sum
@@ -40,3 +41,24 @@ def spmm_coo_batched(src, dst, x, n_nodes: int, edge_w=None):
     if edge_w is not None:
         msgs = msgs * edge_w[None, :, None]
     return segment_sum(msgs, dst, n_nodes, dim=1)
+
+
+def gcn_norm_edges(graph, add_self_loops: bool = True):
+    """Symmetric GCN normalization D^-1/2 (A + I) D^-1/2, on the host.
+
+    PyG ``add_remaining_self_loops`` semantics: a self-loop the graph already
+    carries is dropped before exactly one loop per node is added, so the
+    edge-list and the dense backends see the same matrix. Returns dst-sorted
+    (src, dst, weight) numpy arrays."""
+    src, dst = graph.src, graph.dst
+    if add_self_loops:
+        keep = src != dst
+        src, dst = src[keep], dst[keep]
+        loops = np.arange(graph.n_nodes, dtype=np.int32)
+        src = np.concatenate([src, loops])
+        dst = np.concatenate([dst, loops])
+    deg = np.bincount(dst, minlength=graph.n_nodes).astype(np.float32)
+    dinv = 1.0 / np.sqrt(np.maximum(deg, 1.0))
+    w = dinv[src] * dinv[dst]
+    order = np.lexsort((src, dst))
+    return src[order], dst[order], w[order].astype(np.float32)

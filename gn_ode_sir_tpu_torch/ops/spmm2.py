@@ -262,15 +262,24 @@ class Spmm2Adj:
     precision: str = "f32"
 
     @staticmethod
-    def from_graph(graph, w=None, *, precision: str = "f32", device) -> "Spmm2Adj":
+    def from_edges(src, dst, n_nodes: int, w=None, *, precision: str = "f32",
+                   device) -> "Spmm2Adj":
+        """From a dst-sorted edge list over ``n_nodes`` rows. ``n_nodes`` may
+        exceed the largest endpoint (a graph padded to a batch's width): the
+        rows beyond it are edgeless and come out as zeros."""
         _check_precision(precision)
-        src, dst = np.asarray(graph.src), np.asarray(graph.dst)
+        src, dst = np.asarray(src), np.asarray(dst)
         w = np.ones(src.shape, np.float32) if w is None else np.asarray(w, np.float32)
         order = np.argsort(src, kind="stable")
         return Spmm2Adj(
-            CsrPlan.build(src, dst, graph.n_nodes, w=w, device=device),
-            CsrPlan.build(dst[order], src[order], graph.n_nodes, w=w[order], device=device),
+            CsrPlan.build(src, dst, n_nodes, w=w, device=device),
+            CsrPlan.build(dst[order], src[order], n_nodes, w=w[order], device=device),
             precision)
+
+    @staticmethod
+    def from_graph(graph, w=None, *, precision: str = "f32", device) -> "Spmm2Adj":
+        return Spmm2Adj.from_edges(graph.src, graph.dst, graph.n_nodes, w,
+                                   precision=precision, device=device)
 
     @property
     def n_nodes(self) -> int:

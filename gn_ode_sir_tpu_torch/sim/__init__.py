@@ -1,8 +1,9 @@
 """Label extraction (port of ``gn_ode_sir_tpu.sim``): the vectorized
 Monte-Carlo SIR simulator, whose per-step coin flips and state update run in
-the CUDA kernel K2 (``sim.fused_step``). The classical mean-field baseline
-(``sim/classical.py``) is not ported yet (ROADMAP.md Queue 1)."""
+the CUDA kernel K2 (``sim.fused_step``), and the classical mean-field
+baseline (``sim.classical``)."""
 
+from gn_ode_sir_tpu_torch.sim.classical import sir_classical, sir_classical_batch, sir_field
 from gn_ode_sir_tpu_torch.sim.mc_sir import (
     simulate_sir,
     simulate_sir_counts,
@@ -19,4 +20,7 @@ __all__ = [
     "simulate_sir_many",
     "simulate_sir_per_sim",
     "sir_per_sim_stats",
+    "sir_classical",
+    "sir_field",
+    "sir_classical_batch",
 ]

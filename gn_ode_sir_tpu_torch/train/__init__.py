@@ -1,6 +1,6 @@
 """Training layer (port of ``gn_ode_sir_tpu.train``): loss, trial datasets,
-the training loop and the params checkpoint. Ensemble, multigraph and
-node-split training are not ported yet (ROADMAP.md Queue 1)."""
+the training loop, multi-graph assembly and the params checkpoint. Ensemble
+and node-split training are not ported yet (ROADMAP.md Queue 1)."""
 
 from gn_ode_sir_tpu_torch.train.checkpoint import (
     params_from_numpy,
@@ -23,6 +23,15 @@ from gn_ode_sir_tpu_torch.train.loop import (
     make_train_epoch_fn,
 )
 from gn_ode_sir_tpu_torch.train.loss import l1_sir_loss, masked_l1
+from gn_ode_sir_tpu_torch.train.multigraph import (
+    MultigraphConnectivity,
+    assemble_multigraph_trials,
+    multigraph_adj_fns,
+    multigraph_auto_fns,
+    multigraph_pallas2_fns,
+    multigraph_split,
+    resolve_mg_kind,
+)
 
 __all__ = [
     "l1_sir_loss",
@@ -41,4 +50,11 @@ __all__ = [
     "params_to_numpy",
     "restore_params",
     "save_params",
+    "MultigraphConnectivity",
+    "assemble_multigraph_trials",
+    "multigraph_adj_fns",
+    "multigraph_auto_fns",
+    "multigraph_pallas2_fns",
+    "multigraph_split",
+    "resolve_mg_kind",
 ]

@@ -1,7 +1,8 @@
 """The port's params checkpoint and the JAX <-> port params converter.
 
-Params are the nested dict both packages share
-(``{"enc": {"w": [1, h], "b": [h]}, "func": ..., "dec1": ..., "dec2": ...}``).
+Params are the nested tree both packages share: dicts
+(``{"enc": {"w": [1, h], "b": [h]}, "func": ..., "dec1": ..., "dec2": ...}``)
+and, for the GCN and GIN baselines, lists of dicts (``"convs"``).
 The port saves it with ``torch.save`` and loads it with
 ``torch.load(weights_only=True)``. It cannot read an Orbax checkpoint (Orbax
 imports JAX): the JAX side restores one and hands its leaves over as numpy
@@ -19,7 +20,22 @@ import torch
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def tree_leaves(tree, prefix=()):
+    """(path, leaf) pairs of a params tree: dict keys in sorted order, list
+    items by position, the path joined by '/'."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for k, v in enumerate(tree):
+            yield from tree_leaves(v, prefix + (str(k),))
+    else:
+        yield "/".join(prefix), tree
 
 
 def params_path(directory: str, name: str = "serve") -> str:

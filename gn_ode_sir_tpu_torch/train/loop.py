@@ -9,13 +9,18 @@ of the reference), in float32, and the epoch's loss is the quotient of the
 two sums. The val pass runs every epoch; the test pass runs only when
 validation improves.
 
+Connectivity comes from ``adj_fn(graph_idx) -> adjacency``, where
+``graph_idx`` is the minibatch's graph ids as a numpy array on the HOST: the
+index rows are built there, so a provider that applies one graph's plan to a
+whole minibatch (``train.multigraph.multigraph_pallas2_fns``) reads the id
+without asking the device. The JAX package's ``adj_aux`` argument, which
+keeps connectivity arrays out of a compiled program, has no counterpart:
+the providers close over their device tensors.
+
 Not ported yet, each raising ``NotImplementedError`` when asked for:
 periodic checkpoints and resume (``checkpoint_dir``, ``checkpoint_every``,
 ``checkpoint_auto_s``, ``resume``: ROADMAP.md Queue 1, train/checkpoint.py +
-resume in fit) and ``profile_dir`` (utils/profiling.py). What only the
-multigraph and node-split runs use of the reference's ``fit`` — node masks,
-``adj_aux``, a separate evaluation connectivity, graph-homogeneous batches —
-comes with train/multigraph.py.
+resume in fit) and ``profile_dir`` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -27,53 +32,82 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from gn_ode_sir_tpu_torch.train.checkpoint import tree_map
-from gn_ode_sir_tpu_torch.train.data import TrialData, epoch_batches
+from gn_ode_sir_tpu_torch.sim.mc_sir import fold_seed
+from gn_ode_sir_tpu_torch.train.checkpoint import tree_leaves, tree_map
+from gn_ode_sir_tpu_torch.train.data import TrialData, epoch_batches, epoch_batches_grouped
 from gn_ode_sir_tpu_torch.train.loss import l1_sir_loss
 
 
 def _data_to_device(data: TrialData, device) -> dict:
-    return {k: torch.as_tensor(getattr(data, k), device=device)
-            for k in ("s0", "i0", "r0", "beta", "gamma", "labels", "graph_idx")}
+    """The trial arrays on ``device``; ``graph_idx`` stays on the host."""
+    d = {k: torch.as_tensor(getattr(data, k), device=device)
+         for k in ("s0", "i0", "r0", "beta", "gamma", "labels")}
+    d["graph_idx"] = np.asarray(data.graph_idx)
+    return d
 
 
 def _index(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=torch.long, device=device)
 
 
-def _batch_loss(model, params, adj_fn, d, bidx, bw, train=False):
+def _batch_loss(model, params, adj_fn, node_mask_fn, d, bidx, bw, graph_idx, rng=None,
+                train=False, n_view=None):
     """Loss of one minibatch and its item count (for the item-weighted
     aggregation across minibatches). ``bidx``: [b] long trial indices,
-    ``bw``: [b] f32 weights (0 on padding rows)."""
-    adj = adj_fn(d["graph_idx"][bidx])
-    pred = model.predict(params, adj, d["s0"][bidx], d["i0"][bidx], d["r0"][bidx],
-                         d["beta"][bidx], d["gamma"][bidx], train=train)
-    loss = l1_sir_loss(pred, d["labels"][bidx], trial_weight=bw)
-    items = 3.0 * (d["labels"].shape[1] - 1) * (bw * d["s0"].shape[1]).sum()
+    ``bw``: [b] f32 weights (0 on padding rows), ``graph_idx``: [b] numpy
+    graph ids of those trials.
+
+    ``n_view`` slices the node axis down to the width the adjacency was
+    built for (the largest TRAIN graph of a multi-graph run whose unseen
+    evaluation graph sets a much larger padding). Rows >= n_view are padding
+    for every trial such a program sees (mask 0, label 0), so the numbers are
+    the same and only the work shrinks."""
+    adj = adj_fn(graph_idx)
+    node_mask = None if node_mask_fn is None else node_mask_fn(graph_idx)[:, :n_view]
+    pred = model.predict(params, adj, d["s0"][bidx][:, :n_view], d["i0"][bidx][:, :n_view],
+                         d["r0"][bidx][:, :n_view], d["beta"][bidx], d["gamma"][bidx],
+                         rng=rng, train=train)
+    loss = l1_sir_loss(pred, d["labels"][bidx][:, :, :n_view], trial_weight=bw,
+                       node_mask=node_mask)
+    if node_mask is not None:
+        n_eff = node_mask.sum(1)
+    else:
+        n_eff = n_view if n_view is not None else d["s0"].shape[1]
+    items = 3.0 * (d["labels"].shape[1] - 1) * (bw * n_eff).sum()
     return loss, items
 
 
 def _leaves(params) -> list:
-    out = []
-    for v in params.values():
-        out.extend(_leaves(v) if isinstance(v, dict) else [v])
-    return out
+    return [leaf for _, leaf in tree_leaves(params)]
 
 
-def make_train_epoch_fn(model, optimizer, adj_fn) -> Callable:
+def _rows(d, batch_idx, batch_w):
+    """Per minibatch: device index row, device weight row, host graph ids."""
+    device = d["beta"].device
+    batch_idx = np.asarray(batch_idx, np.int64)
+    return zip(_index(batch_idx, device), torch.as_tensor(batch_w, device=device),
+               d["graph_idx"][batch_idx])
+
+
+def make_train_epoch_fn(model, optimizer, adj_fn, node_mask_fn=None, n_view=None) -> Callable:
     """Whole-epoch trainer: one optimiser step per minibatch index row.
     ``optimizer`` is a ``torch.optim.Optimizer`` over the leaves of
-    ``params``, which it updates in place. Returns the epoch's item-weighted
-    mean loss as a 0-d tensor (no host sync inside the epoch)."""
+    ``params``, which it updates in place. ``epoch_seed`` (an integer) turns
+    dropout on: step k draws its masks from a generator seeded with
+    ``fold_seed(epoch_seed, k)``. Returns the epoch's item-weighted mean loss
+    as a 0-d tensor (no host sync inside the epoch)."""
 
-    def train_epoch(params, d, batch_idx, batch_w):
+    def train_epoch(params, d, batch_idx, batch_w, epoch_seed=None):
         device = d["beta"].device
         loss_sum = torch.zeros((), device=device)
         item_sum = torch.zeros((), device=device)
-        for bidx, bw in zip(_index(batch_idx, device),
-                            torch.as_tensor(batch_w, device=device)):
+        rng = None if epoch_seed is None else torch.Generator(device=device)
+        for k, (bidx, bw, gi) in enumerate(_rows(d, batch_idx, batch_w)):
+            if rng is not None:
+                rng.manual_seed(fold_seed(epoch_seed, k))
             optimizer.zero_grad(set_to_none=True)
-            loss, items = _batch_loss(model, params, adj_fn, d, bidx, bw, train=True)
+            loss, items = _batch_loss(model, params, adj_fn, node_mask_fn, d, bidx, bw, gi,
+                                      rng=rng, train=True, n_view=n_view)
             loss.backward()
             optimizer.step()
             loss_sum += loss.detach() * items
@@ -83,7 +117,7 @@ def make_train_epoch_fn(model, optimizer, adj_fn) -> Callable:
     return train_epoch
 
 
-def make_eval_fn(model, adj_fn) -> Callable:
+def make_eval_fn(model, adj_fn, node_mask_fn=None, n_view=None) -> Callable:
     """Batched evaluation returning the item-weighted mean L1 (0-d tensor)."""
 
     def evaluate(params, d, batch_idx, batch_w):
@@ -91,9 +125,9 @@ def make_eval_fn(model, adj_fn) -> Callable:
         loss_sum = torch.zeros((), device=device)
         item_sum = torch.zeros((), device=device)
         with torch.no_grad():
-            for bidx, bw in zip(_index(batch_idx, device),
-                                torch.as_tensor(batch_w, device=device)):
-                loss, items = _batch_loss(model, params, adj_fn, d, bidx, bw)
+            for bidx, bw, gi in _rows(d, batch_idx, batch_w):
+                loss, items = _batch_loss(model, params, adj_fn, node_mask_fn, d, bidx, bw, gi,
+                                          n_view=n_view)
                 loss_sum += loss * items
                 item_sum += items
         return loss_sum / item_sum
@@ -101,17 +135,18 @@ def make_eval_fn(model, adj_fn) -> Callable:
     return evaluate
 
 
-def make_eval_per_trial_fn(model, adj_fn) -> Callable:
+def make_eval_per_trial_fn(model, adj_fn, node_mask_fn=None, n_view=None) -> Callable:
     """Per-trial evaluation: loss vector [len(idx)], one entry per trial (a
     batch of one each), whatever the training batch size — the per-trial
     test losses that feed the first out-of-dist CSV."""
 
     def evaluate_per_trial(params, d, idx):
         device = d["beta"].device
-        one = torch.ones((1,), device=device)
+        idx = np.asarray(idx).reshape(-1, 1)
         with torch.no_grad():
-            losses = [_batch_loss(model, params, adj_fn, d, i[None], one)[0]
-                      for i in _index(idx, device)]
+            losses = [_batch_loss(model, params, adj_fn, node_mask_fn, d, bidx, bw, gi,
+                                  n_view=n_view)[0]
+                      for bidx, bw, gi in _rows(d, idx, np.ones(idx.shape, np.float32))]
         return torch.stack(losses) if losses else torch.zeros((0,), device=device)
 
     return evaluate_per_trial
@@ -145,6 +180,9 @@ def fit(
     epochs: int = 500,
     batch_size: int = 1,
     seed: int = 0,
+    node_mask_fn=None,
+    eval_adj_fn=None,
+    batch_by_graph: bool = False,
     eval_batch_size: int | None = None,
     verbose: bool = True,
     log_every: int = 50,
@@ -163,9 +201,18 @@ def fit(
     example ``lambda p: torch.optim.Adam(p, lr=1e-4)``), bound here to the
     trained copy of ``params``; the caller's tensors are left untouched.
     ``adj_fn(graph_idx_batch) -> adjacency`` supplies connectivity per
-    minibatch (a constant for single-graph runs). ``seed`` seeds the batch
+    minibatch (a constant for single-graph runs; ``graph_idx_batch`` is a
+    numpy array), ``node_mask_fn(graph_idx_batch) -> [b, n]`` the mask of
+    real nodes on padded multi-graph batches. ``seed`` seeds the batch
     shuffle (``numpy.random.default_rng``, the same orders as the JAX
-    package).
+    package) and, for a model with dropout, the masks: step k of epoch e
+    draws from ``fold_seed(fold_seed(seed + 1, e), k)``.
+
+    ``eval_adj_fn`` (default: ``adj_fn``) lets val/test use another
+    connectivity than training — the multi-graph providers build the train
+    side at the train graphs' width. ``batch_by_graph=True`` builds
+    graph-homogeneous minibatches (``epoch_batches_grouped``), required by
+    an ``adj_fn`` that applies one graph's plan to the whole minibatch.
     """
     if checkpoint_dir or checkpoint_every or checkpoint_auto_s or resume:
         raise NotImplementedError(
@@ -175,6 +222,42 @@ def fit(
         raise NotImplementedError(
             "profile_dir is not ported yet (ROADMAP.md Queue 1: utils/profiling.py)")
 
+    # an adj_fn that reads ONE plan per minibatch declares it: run with
+    # mixed-graph batches it would apply the wrong connectivity to most trials
+    for f in (adj_fn, eval_adj_fn):
+        if (f is not None and getattr(f, "requires_grouped_batches", False)
+                and not batch_by_graph):
+            raise ValueError(
+                f"{getattr(f, '__name__', 'adj_fn')} applies one graph's "
+                "plan to the whole minibatch: it requires graph-homogeneous "
+                "batches — call fit(..., batch_by_graph=True)"
+            )
+
+    # a node-view adjacency is valid only for the graphs it was built for: a
+    # trial of a larger graph would silently lose its high rows
+    def _check_view(f, idx, which, hint):
+        ok_graphs = getattr(f, "valid_train_graphs", None)
+        if ok_graphs is None or len(idx) == 0:
+            return
+        bad = set(int(g) for g in np.asarray(data.graph_idx)[
+            np.asarray(idx, np.int64)]) - set(ok_graphs)
+        if bad:
+            raise ValueError(
+                f"{which} contains trials of graphs {sorted(bad)}, but the "
+                f"adjacency's node view only covers graphs "
+                f"{sorted(ok_graphs)} (the non-eval bucket). {hint}"
+            )
+
+    _check_view(adj_fn, train_idx, "train_idx",
+                "Pass the protocol train split, or rebuild connectivity "
+                "with train_node_view=False.")
+    e_adj_fn = eval_adj_fn or adj_fn
+    for _idx, _name in ((val_idx, "val_idx"), (test_idx, "test_idx")):
+        _check_view(e_adj_fn, _idx, _name,
+                    "Pass eval_adj_fn (the full-width adjacency — e.g. "
+                    "MultigraphConnectivity.eval_adj_fn / fit_kwargs()), or "
+                    "rebuild connectivity with train_node_view=False.")
+
     device = _leaves(params)[0].device
     # the trained copy: torch optimisers update their tensors in place
     params = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
@@ -182,16 +265,26 @@ def fit(
     snapshot = lambda: tree_map(lambda t: t.detach().clone(), params)
 
     d = _data_to_device(data, device)
-    train_epoch = make_train_epoch_fn(model, opt, adj_fn)
-    evaluate = make_eval_fn(model, adj_fn)
-    evaluate_per_trial = make_eval_per_trial_fn(model, adj_fn) if track_test_per_trial else None
+    # a provider that builds its adjacency below the data's padded width
+    # declares the width on the fn; that program then runs at it
+    train_epoch = make_train_epoch_fn(model, opt, adj_fn, node_mask_fn,
+                                      n_view=getattr(adj_fn, "n_view", None))
+    e_n_view = getattr(e_adj_fn, "n_view", None)
+    evaluate = make_eval_fn(model, e_adj_fn, node_mask_fn, n_view=e_n_view)
+    evaluate_per_trial = (make_eval_per_trial_fn(model, e_adj_fn, node_mask_fn, n_view=e_n_view)
+                          if track_test_per_trial else None)
 
     ebs = eval_batch_size or max(batch_size, 8)
     rng = np.random.default_rng(seed)
-    val_bi, val_bw = epoch_batches(len(val_idx), ebs, None)
-    test_bi, test_bw = epoch_batches(len(test_idx), ebs, None)
-    val_bi = np.asarray(val_idx, np.int32)[val_bi]
-    test_bi = np.asarray(test_idx, np.int32)[test_bi]
+
+    def batches(idx, size, rng):
+        if batch_by_graph:
+            return epoch_batches_grouped(idx, data.graph_idx, size, rng)
+        bi, bw = epoch_batches(len(idx), size, rng)
+        return np.asarray(idx, np.int32)[bi], bw
+
+    val_bi, val_bw = batches(val_idx, ebs, None)
+    test_bi, test_bw = batches(test_idx, ebs, None)
 
     best_val = float("inf")
     best_epoch = -1
@@ -203,9 +296,8 @@ def fit(
 
     for epoch in range(epochs):
         t0 = time.perf_counter()
-        bi, bw = epoch_batches(len(train_idx), batch_size, rng)
-        bi = np.asarray(train_idx, np.int32)[bi]
-        train_loss = train_epoch(params, d, bi, bw)
+        bi, bw = batches(train_idx, batch_size, rng)
+        train_loss = train_epoch(params, d, bi, bw, fold_seed(seed + 1, epoch))
         val_loss = float(evaluate(params, d, val_bi, val_bw))  # waits for the device
         epoch_times.append(time.perf_counter() - t0)
         train_loss = float(train_loss)

@@ -239,3 +239,86 @@ def test_simulator_on_card_matches_cpu(cuda_device, matmul):
                               device=cuda_device)  # fewer rows than _int_mm takes
     np.testing.assert_array_equal(
         few, simulate_sir_counts(g, [0], 0.2, 0.3, sims=8, max_time=4, seed=12, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [5, 8, 64])
+def test_spmm2_on_a_padded_weighted_plan(cuda_device, h):
+    """K1 and K1-bwd at the multi-graph widths (h = 8: the published hidden;
+    h = 5: GIN's first layer) with GCN-normalized weights, on a plan wider
+    than its graph: the rows beyond the real node count write zeros."""
+    from gn_ode_sir_tpu_torch.ops import gcn_norm_edges
+
+    g = _graph()
+    src, dst, w = gcn_norm_edges(g)
+    width = 384  # the graph has 300 nodes
+    adj = Spmm2Adj.from_edges(src, dst, width, w, device=cuda_device)
+    rng = np.random.default_rng(h)
+    x = torch.as_tensor(rng.standard_normal((3, width, h), np.float32),
+                        device=cuda_device).requires_grad_(True)
+    gout = torch.as_tensor(rng.standard_normal((3, width, h), np.float32), device=cuda_device)
+    before = (spmm2.launches, spmm2.backward_launches)
+    y = adj.matvec(x)
+    (dx,) = torch.autograd.grad(y, x, gout)
+    assert (spmm2.launches - before[0], spmm2.backward_launches - before[1]) == (2, 1)
+    np.testing.assert_allclose(y.detach().cpu().numpy(),
+                               spmm2_plain(adj.plan, x.detach()).cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(dx.cpu().numpy(), spmm2_plain(adj.plan_t, gout).cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    assert not y[:, g.n_nodes:].any() and not dx[:, g.n_nodes:].any()
+    assert torch.equal(adj.matvec(x), y)  # bit-equal between launches
+
+
+def _multigraph_step(model, graphs, kind, gcn_normalized, device):
+    """Loss and gradient leaves of one grouped training minibatch (two trials
+    of graph 1) through ``multigraph_auto_fns`` on ``device``."""
+    from gn_ode_sir_tpu_torch.graphs import pad_graphs
+    from gn_ode_sir_tpu_torch.train import build_trial_data, l1_sir_loss, multigraph_auto_fns
+    from gn_ode_sir_tpu_torch.train.checkpoint import tree_leaves, tree_map
+
+    batch = pad_graphs(graphs)
+    conn = multigraph_auto_fns(batch, kind=kind, gcn_normalized=gcn_normalized, device=device)
+    rng = np.random.default_rng(3)
+    n = graphs[1].n_nodes
+    triples = []
+    for _ in range(2):
+        p = rng.dirichlet([2.0, 1.0, 1.0], size=(model.max_time, n))
+        triples.append((p[..., 0], p[..., 1], p[..., 2]))
+    data = build_trial_data(batch.n_max, [[1, 2], [5]], [0.3, 0.2], [0.1, 0.3], triples,
+                            graph_idx=[1, 1], n_pad=batch.n_max)
+    gi = np.array([1, 1])
+    width = conn.adj_fn.n_view
+    params = tree_map(lambda t: t.to(device).requires_grad_(True),
+                      model.init(torch.Generator().manual_seed(0), device="cpu"))
+    on = lambda a: torch.as_tensor(a, device=device)
+    pred = model.predict(params, conn.adj_fn(gi), on(data.s0)[:, :width], on(data.i0)[:, :width],
+                         on(data.r0)[:, :width], on(data.beta), on(data.gamma), train=True)
+    loss = l1_sir_loss(pred, on(data.labels)[:, :, :width],
+                       node_mask=conn.node_mask_fn(gi)[:, :width])
+    loss.backward()
+    return float(loss.detach()), {p: leaf.grad.cpu() for p, leaf in tree_leaves(params)
+                         if leaf.grad is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ode_nn", "GCN"])
+def test_multigraph_training_step_on_card_matches_cpu(cuda_device, family):
+    """One multi-graph training step through K1 (train-side plans at the node
+    view's width, GCN with normalized weights) on the card against the CPU."""
+    from gn_ode_sir_tpu_torch.models import GCN, TimeUnrolledSIR
+
+    graphs = [_graph(40, 90, 1), _graph(100, 400, 2), _graph(300, 1500, 0)]
+    model = (GNODE(hidden=8, max_time=6, adjoint="direct") if family == "ode_nn"
+             else TimeUnrolledSIR(GCN(hidden_dim=8, window=6, dropout=0.0)))
+    before = (spmm2.launches, spmm2.backward_launches)
+    loss_gpu, grads_gpu = _multigraph_step(model, graphs, "pallas2", family == "GCN", cuda_device)
+    applies = 11 if family == "ode_nn" else 5  # euler steps / layers used
+    assert (spmm2.launches - before[0], spmm2.backward_launches - before[1]) == (
+        2 * applies, applies)
+    loss_cpu, grads_cpu = _multigraph_step(model, graphs, "pallas2", family == "GCN", "cpu")
+    assert loss_gpu == pytest.approx(loss_cpu, abs=1e-5)
+    top = max(float(g.abs().max()) for g in grads_cpu.values())
+    for path, g in grads_cpu.items():
+        scale = max(float(g.abs().max()), 1e-3 * top)
+        assert float((grads_gpu[path] - g).abs().max()) <= 1e-4 * scale, path

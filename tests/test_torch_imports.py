@@ -26,7 +26,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 sys.path.insert(0, "scripts")
-import torch_serve_profile, torch_train_profile
+import torch_baselines_profile, torch_serve_profile, torch_spmm2_tune, torch_train_profile
 print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
 """
 
@@ -51,7 +51,11 @@ def test_every_module_imports(probe):
                 "gn_ode_sir_tpu_torch.sim.fused_step", "gn_ode_sir_tpu_torch.sim.mc_sir",
                 "gn_ode_sir_tpu_torch.utils.labels", "gn_ode_sir_tpu_torch.utils.csvsink",
                 "gn_ode_sir_tpu_torch.utils.config", "gn_ode_sir_tpu_torch.train.loss",
-                "gn_ode_sir_tpu_torch.train.data", "gn_ode_sir_tpu_torch.train.loop"}
+                "gn_ode_sir_tpu_torch.train.data", "gn_ode_sir_tpu_torch.train.loop",
+                "gn_ode_sir_tpu_torch.graphs.batch", "gn_ode_sir_tpu_torch.sim.classical",
+                "gn_ode_sir_tpu_torch.models.dmp", "gn_ode_sir_tpu_torch.models.gcn",
+                "gn_ode_sir_tpu_torch.models.gin", "gn_ode_sir_tpu_torch.models.adapter",
+                "gn_ode_sir_tpu_torch.train.multigraph"}
     assert expected <= set(probe["modules"])
 
 
@@ -60,6 +64,45 @@ def test_every_module_imports(probe):
 def test_no_forbidden_module_loaded(probe, forbidden):
     bad = [m for m in probe["loaded"] if m == forbidden or m.startswith(forbidden + ".")]
     assert not bad, f"importing the port loaded {bad[:5]}"
+
+
+def test_new_tensor_placing_calls_need_an_explicit_device():
+    """Nothing the multi-graph and baseline modules add picks a device for the
+    caller: without ``device`` each refuses to run."""
+    import numpy as np
+
+    from gn_ode_sir_tpu_torch.graphs import graph_from_edges, pad_graphs
+    from gn_ode_sir_tpu_torch.models import DMPSIR, GCN, GIN, TimeUnrolledSIR
+    from gn_ode_sir_tpu_torch.ops.adjacency import adjacency_from_batch
+    from gn_ode_sir_tpu_torch.ops.spmm2 import Spmm2Adj
+    from gn_ode_sir_tpu_torch.sim import sir_classical, sir_classical_batch
+    from gn_ode_sir_tpu_torch.train import (assemble_multigraph_trials, multigraph_adj_fns,
+                                            multigraph_auto_fns, multigraph_pallas2_fns)
+
+    ga = graph_from_edges(6, [(k, (k + 1) % 6) for k in range(6)], name="a")
+    gb = graph_from_edges(9, [(0, k) for k in range(1, 9)], name="b")
+    batch = pad_graphs([ga, gb])
+    dmp = DMPSIR.from_graph(ga)
+    trials = [[([1], 0.3, 0.1)], [([2], 0.2, 0.2), ([3], 0.4, 0.1)]]
+    calls = [
+        lambda **kw: multigraph_auto_fns(batch, **kw),
+        lambda **kw: multigraph_adj_fns(batch, kind="dense", **kw),
+        lambda **kw: multigraph_pallas2_fns(batch, **kw),
+        lambda **kw: assemble_multigraph_trials([ga, gb], trials, sim=20, max_time=3, **kw),
+        lambda **kw: sir_classical_batch(ga, [[1]], [0.3], [0.1], max_time=3, **kw),
+        lambda **kw: sir_classical(ga, [1], 0.3, 0.1, max_time=3, **kw),
+        lambda **kw: dmp.run([1], 0.3, 0.1, max_time=3, **kw),
+        lambda **kw: dmp.run_many([[1], [2]], [0.3, 0.2], [0.1, 0.2], max_time=3, **kw),
+        lambda **kw: GCN(window=3).init(torch.Generator(), **kw),
+        lambda **kw: GIN(window=3).init(torch.Generator(), **kw),
+        lambda **kw: TimeUnrolledSIR(GCN(window=3)).init(torch.Generator(), **kw),
+        lambda **kw: adjacency_from_batch(batch, np.array([0, 1]), **kw),
+        lambda **kw: Spmm2Adj.from_edges(ga.src, ga.dst, 8, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(TypeError, match="device"):
+            call()
+        call(device="cpu")
 
 
 def _run_smoke(cwd):

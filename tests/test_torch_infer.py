@@ -172,9 +172,60 @@ def test_spmd_not_ported(served):
 
 
 def test_unported_models_raise():
-    args = worker.build_parser().parse_args(["--model", "GCN", "--device", "cpu"])
+    """GCN and GIN build now; what is still unported (the ell adjacency)
+    raises naming its item, and a closed-form baseline is no trainable model."""
+    for name in ("GCN", "GIN"):
+        args = worker.build_parser().parse_args(["--model", name, "--hidden", "6", "--device", "cpu"])
+        model = worker.build_model(args, 10)
+        want = jax_worker.build_model(jax_worker.build_parser().parse_args(
+            ["--model", name, "--hidden", "6"]), 10)
+        assert type(model.gnn).__name__ == name
+        assert (model.gnn.hidden_dim, model.gnn.penultimate_dim, model.gnn.window,
+                model.gnn.input_dim, model.gnn.dropout) == (
+            want.gnn.hidden_dim, want.gnn.penultimate_dim, want.gnn.window,
+            want.gnn.input_dim, want.gnn.dropout)
+    args = worker.build_parser().parse_args(["--spmm", "ell", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        worker.build_model_and_adj(args, load_graph("none"))
+    args = worker.build_parser().parse_args(["--model", "dmp", "--device", "cpu"])
+    with pytest.raises(ValueError, match="trainable"):
         worker.build_model(args, 10)
+
+
+@pytest.mark.parametrize("family", ["GCN", "GIN"])
+def test_gnn_baselines_serve_from_a_checkpoint(family, tmp_path):
+    """A JAX GCN/GIN tree carried across, saved, and scored by ``infer.main``:
+    equal to the port's ``model.predict`` (1e-6) and to the JAX serving path
+    on the same params (1e-5)."""
+    argv = ["--ckpt", str(tmp_path), "--dataset", "none", "--model", family, "--hidden", "8",
+            "--maxTime", "6"]
+    jargs = jax_infer.build_parser().parse_args([*argv, "--I_indices", "x"])
+    jg = jax_load_graph("none")
+    jmodel, jadj = jax_worker.build_model_and_adj(jargs, jg, batch_size=3)
+    pj = jmodel.init(jax.random.PRNGKey(5))
+    pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), device="cpu")
+    save_params(str(tmp_path), pt)
+    out = tmp_path / "p.npz"
+    assert infer.main([*argv, "--device", "cpu", *SCEN, "--out", str(out)]) == 0
+    z = np.load(out, allow_pickle=True)
+    got = np.stack([z["S"], z["I"], z["R"]], -1)  # [B, T, n, 3]
+    g = load_graph("none")
+    args = infer.build_parser().parse_args([*argv, "--device", "cpu"])
+    model, adj = worker.build_model_and_adj(args, g, batch_size=3)
+    infer.check_params_match(model, pt)
+    sb = infer.scenario_batch(g.n_nodes, SEEDS, BETA, GAMMA)
+    direct = model.predict(pt, adj, *map(torch.as_tensor, sb)).permute(1, 0, 2, 3).numpy()
+    assert got.shape == (3, 6, g.n_nodes, 3)
+    np.testing.assert_allclose(got, direct, atol=1e-6)
+    want = jax_infer.predict_scenarios(jmodel, pj, jadj, *sb)
+    np.testing.assert_allclose(got, np.transpose(np.asarray(want), (1, 0, 2, 3)), atol=ATOL)
+    chunked = infer.predict_summaries(model, pt, adj, *sb, dispatch_batch=2)
+    whole = infer.predict_summaries(model, pt, adj, *sb)
+    if family == "GCN":  # GIN's batch norm reads the whole dispatch: chunking changes it
+        _assert_rows_close([{k: str(v) for k, v in r.items()} for r in chunked],
+                           [{k: str(v) for k, v in r.items()} for r in whole])
+    with pytest.raises(SystemExit, match="do not match"):
+        infer.main([*argv[:-4], "--hidden", "4", "--maxTime", "6", "--device", "cpu", *SCEN])
 
 
 def test_params_checkpoint_roundtrip(served, tmp_path):
