@@ -71,16 +71,18 @@ import zlib
 import numpy as np
 import torch
 
-from gn_ode_sir_tpu_torch.cli import infer, worker
+from gn_ode_sir_tpu_torch.cli import infer, monitorer, worker
 from gn_ode_sir_tpu_torch.graphs.graph import Graph, graph_from_edges
-from gn_ode_sir_tpu_torch.models import DMPSIR, GCN, GIN, TimeUnrolledSIR
+from gn_ode_sir_tpu_torch.models import DMPSIR, GCN, GIN, GNODE, TimeUnrolledSIR
 from gn_ode_sir_tpu_torch.ops import _kernels, gcn_norm_edges
+from gn_ode_sir_tpu_torch.ops import spmm2 as spmm2_module
 from gn_ode_sir_tpu_torch.ops.spmm2 import (SEGMENT_EDGES, CsrPlan, Spmm2Adj, spmm2,
                                             spmm2_plain)
 from gn_ode_sir_tpu_torch.sim import classical, mc_sir, sir_classical_batch
 from gn_ode_sir_tpu_torch.sim.fused_step import philox4x32_words, sir_step, sir_update_plain
-from gn_ode_sir_tpu_torch.train import (assemble_multigraph_trials, build_trial_data, l1_sir_loss,
-                                        multigraph_auto_fns, multigraph_split)
+from gn_ode_sir_tpu_torch.train import (assemble_multigraph_trials, build_trial_data,
+                                        init_ensemble, l1_sir_loss, multigraph_auto_fns,
+                                        multigraph_split)
 from gn_ode_sir_tpu_torch.train.checkpoint import save_params, tree_leaves, tree_map
 from gn_ode_sir_tpu_torch.train.loop import (_batch_loss, _data_to_device, make_eval_fn,
                                              make_train_epoch_fn)
@@ -118,10 +120,16 @@ MG_TRIALS_PER_GRAPH = 8  # the published run has 36 per train graph and 120 on e
 MG_SIMS = 1_000  # simulations per label (published: 10,000)
 MG_EPOCHS = 2
 MG_TRAIN_WIDTH = 7_168  # wiki-vote's 7,066 nodes rounded up to 128
-WIKI, FB_SOCIAL = 4, 2  # positions in MG_GRAPH_SIZES
+WIKI, FB_SOCIAL, FB_FOOD = 4, 2, 1  # positions in MG_GRAPH_SIZES
 BASELINE_HIDDEN = 64
 DMP_ATOL = 1e-5  # DMP marginals, card vs CPU
 RK_ATOL = 1e-4  # RK trajectories, card vs CPU
+MATRIX_K = 4  # ensemble members: the published hidden_dim_array=(8, 8, 8, 8)
+ENSEMBLE_LOSS_ATOL = 1e-5  # member j vs the sequential fit with init seed j
+CRASH_EPOCHS = 3
+BACKSOLVE_GRAD_RTOL = 2e-3  # the JAX package's own, tests/test_odeint.py
+DOPRI_BUDGET = 12  # attempts over the horizon (the default, 2 * 39, holds 78 states x 4)
+DOPRI_ATOL = 1e-4  # card vs CPU probabilities
 
 
 def emit(obj) -> None:
@@ -363,6 +371,11 @@ def phase_kernel(graph, mg_graphs) -> tuple[dict, list]:
     mg_rows = [check_spmm2_case(name, g, MG_BATCH, h, "f32", f32, timed=True, w=w,
                                 real_nodes=real)
                for name, g, w, real, h in multigraph_kernel_cases(mg_graphs)]
+    # the matrix's folds: four members of the multi-graph evaluation in one
+    # launch (the training fold at enron size, [4, n, 64], is the b4 case above)
+    mg_rows.append(check_spmm2_case(f"matrix_fold_enron_eval_b{MATRIX_K * MG_BATCH}_h8",
+                                    mg_graphs[-1], MATRIX_K * MG_BATCH, MG_HIDDEN, "f32", f32,
+                                    timed=True))
     return main, mg_rows
 
 
@@ -438,6 +451,9 @@ def phase_kernel_bwd(graph, mg_graphs) -> tuple[dict, list]:
                          timed=False, weighted=True)
     mg_rows = [check_spmm2_bwd_case("bwd_" + name, g, MG_BATCH, "f32", timed=True, w=w, h=h)
                for name, g, w, _, h in multigraph_kernel_cases(mg_graphs)]
+    # the single-graph ensemble's training fold: four members at batch 1
+    mg_rows.append(check_spmm2_bwd_case(f"bwd_matrix_fold_enron_b{MATRIX_K}", graph, MATRIX_K,
+                                        "f32", timed=True))
     return main, mg_rows  # batch 1 is the training path's shape
 
 
@@ -1218,6 +1234,454 @@ def phase_baselines(wiki, small, save_dir) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recorded_launches():
+    """Every K1 launch made inside: (x's shape, whether a backward pass made
+    it), read where the wrapper hands x to the kernel, so that a ``vmap``
+    fold shows its real [K·B, n, h]."""
+    record = []
+    launch = spmm2_module._launch
+
+    def recording(plan, x, precision, backward):
+        record.append((tuple(x.shape), backward))
+        return launch(plan, x, precision, backward)
+
+    spmm2_module._launch = recording
+    try:
+        yield record
+    finally:
+        spmm2_module._launch = launch
+
+
+class FdCapture:
+    """What this process and its children write to file descriptor ``fd`` (1:
+    standard output, 2: errors) inside the block, as ``.text`` after it."""
+
+    def __init__(self, fd: int = 1):
+        self.fd, self.stream = fd, (sys.stdout if fd == 1 else sys.stderr)
+
+    def __enter__(self):
+        self.stream.flush()
+        self._saved = os.dup(self.fd)
+        self._file = tempfile.TemporaryFile()
+        os.dup2(self._file.fileno(), self.fd)
+        return self
+
+    def __exit__(self, *exc):
+        self.stream.flush()
+        os.dup2(self._saved, self.fd)
+        os.close(self._saved)
+        self._file.seek(0)
+        self.text = self._file.read().decode(errors="replace")
+        self._file.close()
+
+
+def ensemble_history(printed: str, k: int) -> list:
+    """[(train losses [k], val losses [k], seconds)] per epoch from an
+    ensemble worker's output."""
+    rows = re.findall(r"Train Loss: ([0-9.eE+/-]+), Val Loss: ([0-9.eE+/-]+) \(([0-9.]+)s\)",
+                      printed)
+    hist = [([float(x) for x in a.split("/")], [float(x) for x in b.split("/")], float(c))
+            for a, b, c in rows]
+    if not hist or any(len(a) != k or len(b) != k for a, b, _ in hist):
+        raise AssertionError(f"ensemble history is not {k} members an epoch: {rows}")
+    return hist
+
+
+def csv_rows(save_dir, dataset_name) -> list:
+    with open(os.path.join(save_dir, f"Metrics-trials-{dataset_name}"), newline="") as f:
+        rows = list(csv.reader(f))
+    if rows[0] != TRIAL_COLUMNS:
+        raise AssertionError("CSV header")
+    return [dict(zip(TRIAL_COLUMNS, r)) for r in rows[1:]]
+
+
+def launch_counts(record, shape) -> dict:
+    return {"forward": sum(1 for s, b in record if s == shape and not b),
+            "backward": sum(1 for s, b in record if s == shape and b)}
+
+
+def matrix_ensemble(graph, trials, save_dir) -> dict:
+    """``cli.worker.main --ensemble 4`` (C7, hidden 64, batch 1, euler) on the
+    six labelled trials, against four sequential workers with init seeds
+    0..3: member j's losses equal run j's within ``ENSEMBLE_LOSS_ATOL``, and
+    K1 takes the four members in one launch per field evaluation of a
+    training step. The evaluation passes (batch 8: 8.3 GB of trajectory a
+    member, four over the activation budget) run the members one after
+    another."""
+    k, n, h = MATRIX_K, graph.n_nodes, 64
+    argv = ["--model", "ode_nn", "--hidden", str(h), "--method", "euler", "--deltaT", "0.5",
+            "--maxTime", str(MAX_TIME), "--batch_size", "1", "--lr", "1e-4", "--epochs", "1",
+            "--sim", str(LABEL_SIMS), "--spmm", "auto", "--dataset", graph.name,
+            "--path_to_save", save_dir, *trial_argv(trials)]
+    csv_before = len(csv_rows(save_dir, graph.name))
+    torch.cuda.synchronize()
+    spmm2.launches = spmm2.backward_launches = 0  # the ensemble's path starts here
+    with recorded_launches() as record:
+        printed, seconds = run_worker([*argv, "--ensemble", str(k), "--trial", "11"], graph)
+    launches = (spmm2.launches, spmm2.backward_launches)  # and ends here
+    if "ensemble routes (training, evaluation): ('fold', 'per_member')" not in printed:
+        raise AssertionError("the single-graph ensemble did not fold its training steps")
+    hist = ensemble_history(printed, k)
+    n_train = 3
+    train, evals = launch_counts(record, (k, n, h)), launch_counts(record, (8, n, h))
+    if (train != {"forward": n_train * EULER_STEPS, "backward": n_train * EULER_STEPS}
+            or evals != {"forward": 2 * k * EULER_STEPS, "backward": 0}
+            or len(record) != launches[0] or launches[1] != train["backward"]):
+        raise AssertionError(
+            f"K1 launches {launches}: expected {EULER_STEPS} forward and backward at "
+            f"[{k}, {n}, {h}] per training step over {n_train}, {EULER_STEPS} at "
+            f"[8, {n}, {h}] per member and evaluation pass over 2: {train}, {evals}")
+    rows = csv_rows(save_dir, graph.name)[csv_before:]
+    if [r["trial"] for r in rows] != [str(11 + j) for j in range(k)]:
+        raise AssertionError(f"the ensemble wrote trials {[r['trial'] for r in rows]}")
+    seq, seq_s = [], []
+    for j in range(k):
+        out, _ = run_worker([*argv, "--trial", str(21 + j), "--init_seed", str(j)], graph)
+        seq.append(training_history(out, 1)[0])
+    err = max(max(abs(hist[0][0][j] - seq[j][0]), abs(hist[0][1][j] - seq[j][1]))
+              for j in range(k))
+    if err > ENSEMBLE_LOSS_ATOL:
+        raise AssertionError(f"ensemble members vs sequential fits: max loss error {err}")
+    return {"part": "ensemble_single_graph", "n": n, "hidden": h, "members": k,
+            "batch_size": 1, "routes": ["fold", "per_member"], "seconds": seconds,
+            "csv_rows": [{c: r[c] for c in ("trial", "best_epoch", "val_loss", "test_loss")}
+                         for r in rows],
+            "k1_launches": launches[0], "k1_backward_launches": launches[1],
+            "k1_per_training_step": {"forward": EULER_STEPS, "backward": EULER_STEPS,
+                                     "shape": [k, n, h]},
+            "k1_per_evaluation_pass": {"forward": k * EULER_STEPS, "shape": [8, n, h]},
+            "epoch_ms_ensemble": hist[0][2] * 1e3,
+            "epoch_ms_sequential": [r[2] * 1e3 for r in seq],
+            "epoch_ms_sequential_sum": sum(r[2] for r in seq) * 1e3,
+            "member_loss_max_abs_err": err, "tol": ENSEMBLE_LOSS_ATOL}
+
+
+def matrix_multigraph(graphs, save_dir) -> dict:
+    """``run_matrix`` in this process on ``ngraphs_config()`` with
+    ``--ensemble``: the published four repeats at hidden 8 become one
+    ``--ensemble 4`` worker (depth cut as the multigraph phase's, whose
+    pinned trials and labels in ``save_dir`` it reuses). Training takes the
+    per-member route (one K1 plan per graph); evaluation folds."""
+    dataset = "+".join(g.name for g in graphs)
+    n_max = -(-graphs[-1].n_nodes // 8) * 8
+    cfg = dataclasses.replace(
+        monitorer.ngraphs_config(), datasets_array=(dataset,), epochs=1, sim=MG_SIMS,
+        experiments_root=save_dir,
+        worker_flags=("--instances_per_graph", *[str(MG_TRIALS_PER_GRAPH)] * len(graphs),
+                      "--mg_adj", "auto"))
+    k = len(cfg.hidden_dim_array)
+    csv_before = len(csv_rows(save_dir, dataset))
+    torch.cuda.synchronize()
+    spmm2.launches = spmm2.backward_launches = sir_step.launches = 0  # the path starts here
+    with recorded_launches() as record, FdCapture() as out:
+        t0 = time.perf_counter()
+        rc = monitorer.run_matrix(cfg, ensemble=True, device="cuda", graphs={dataset: graphs})
+        seconds = time.perf_counter() - t0
+    launches = (spmm2.launches, spmm2.backward_launches, sir_step.launches)  # ends here
+    printed = out.text
+    if rc != 0 or "Started experiment 1/1" not in printed or f"ensemble={k}" not in printed:
+        raise AssertionError(f"run_matrix --ensemble: rc {rc}\n{printed[-3000:]}")
+    if "ensemble routes (training, evaluation): ('per_member', 'fold')" not in printed:
+        raise AssertionError("the multi-graph ensemble did not train per member and fold evaluation")
+    hist = ensemble_history(printed, k)
+    steps = len(graphs) - 1  # one minibatch of MG_BATCH trials a train graph, per member
+    train = launch_counts(record, (MG_BATCH, MG_TRAIN_WIDTH, MG_HIDDEN))
+    evals = launch_counts(record, (k * MG_BATCH, n_max, MG_HIDDEN))
+    if (train != {"forward": k * steps * EULER_STEPS, "backward": k * steps * EULER_STEPS}
+            or evals["backward"] or evals["forward"] not in (2 * EULER_STEPS,)
+            or len(record) != launches[0] or launches[2] != 0):
+        raise AssertionError(
+            f"K1 launches {launches}: training {train} (expected {k * steps * EULER_STEPS} "
+            f"each way at [{MG_BATCH}, {MG_TRAIN_WIDTH}, {MG_HIDDEN}]), evaluation {evals} "
+            f"(expected {2 * EULER_STEPS} at [{k * MG_BATCH}, {n_max}, {MG_HIDDEN}])")
+    rows = csv_rows(save_dir, dataset)[csv_before:]
+    if [r["trial"] for r in rows] != [str(1 + j) for j in range(k)] or not all(
+            0.0 < float(r["test_loss"]) < 1.0 for r in rows):
+        raise AssertionError(f"matrix CSV rows {rows}")
+
+    # the evaluation pass alone: the four members folded into one K1 launch a
+    # field evaluation, timed warm
+    per_graph = []
+    for g in graphs:
+        parts = []
+        for key in ("seed", "beta", "gamma"):
+            path = os.path.join(save_dir, f"Experiments-seed2-{g.name}", f"initial-{key}.pkl")
+            with open(path, "rb") as f:
+                parts.append(pickle.load(f)[:MG_TRIALS_PER_GRAPH])
+        per_graph.append(list(zip(*parts)))
+    batch, data = assemble_multigraph_trials(
+        graphs, per_graph, sim=MG_SIMS, max_time=MAX_TIME, device="cuda",
+        label_dirs=[os.path.join(save_dir, f"Experiments-seed2-{g.name}") for g in graphs])
+    _, va, te = multigraph_split([MG_TRIALS_PER_GRAPH] * len(graphs))
+    conn = multigraph_auto_fns(batch, device="cuda")
+    args = worker.build_parser().parse_args(
+        ["--hidden", str(MG_HIDDEN), "--batch_size", str(MG_BATCH), "--device", "cuda"])
+    model = worker.build_model(args, n_max)
+    params = init_ensemble(model, range(k), device="cuda")
+    evaluate = make_eval_fn(model, conn.eval_adj_fn, conn.node_mask_fn)
+    d = _data_to_device(data, "cuda")
+    rows_idx = np.concatenate([va, te])[None, :MG_BATCH]
+    ones = np.ones((1, MG_BATCH), np.float32)
+    fold = lambda: torch.func.vmap(lambda p: evaluate(p, d, rows_idx, ones))(params)
+    one_by_one = lambda: torch.stack([evaluate(tree_map(lambda t: t[j], params), d, rows_idx,
+                                               ones) for j in range(k)])
+    eval_ms, one_by_one_ms = {}, {}
+    for turn in range(2):  # in turns: fold, members one by one, and again
+        for name, fn in (("fold", fold), ("one_by_one", one_by_one)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            (eval_ms if name == "fold" else one_by_one_ms)[turn] = (
+                (time.perf_counter() - t0) / 3 * 1e3)
+    if not torch.allclose(fold(), one_by_one(), rtol=1e-6, atol=0.0):
+        raise AssertionError("the folded evaluation differs from the members' own")
+    eval_ms, one_by_one_ms = min(eval_ms.values()), min(one_by_one_ms.values())
+    epoch_ms = hist[0][2] * 1e3
+    return {"part": "multigraph_matrix_folded", "graphs": len(graphs), "members": k,
+            "hidden": MG_HIDDEN, "batch_size": MG_BATCH, "epochs": 1,
+            "routes": ["per_member", "fold"], "seconds": seconds,
+            "csv_rows": [{c: r[c] for c in ("trial", "best_epoch", "val_loss", "test_loss")}
+                         for r in rows],
+            "k1_launches": launches[0], "k1_backward_launches": launches[1],
+            "k1_training": {**train, "shape": [MG_BATCH, MG_TRAIN_WIDTH, MG_HIDDEN]},
+            "k1_evaluation": {**evals, "shape": [k * MG_BATCH, n_max, MG_HIDDEN],
+                              "per_pass": EULER_STEPS},
+            "epoch_ms": epoch_ms, "eval_pass_ms": eval_ms,
+            "eval_pass_ms_members_one_by_one": one_by_one_ms,
+            "training_step_ms": (epoch_ms - eval_ms) / steps,
+            "training_step_ms_is": "(epoch - one evaluation pass) / minibatches; a step "
+                                   "runs the four members one after another"}
+
+
+def matrix_crash_resume(graph, trials, root) -> dict:
+    """One single-graph job through ``run_matrix`` in worker processes, with
+    ``--checkpoint_every 1 --die_at_epoch 1``: the first attempt exits with
+    17 at epoch 1, the retry resumes its checkpoint. Its history and CSV row
+    must equal an uninterrupted run's in this process."""
+    dataset = os.path.join(root, graph.name)
+    with open(dataset + ".pkl", "wb") as f:  # a worker process reads it without networkx
+        pickle.dump(Graph(n_nodes=graph.n_nodes, src=graph.src, dst=graph.dst,
+                          name=graph.name), f)
+    save_dir = os.path.join(root, f"Experiments-seed2-{graph.name}")
+    cfg = monitorer.MatrixConfig(
+        epochs=CRASH_EPOCHS, lr=1e-4, batch_size=1, sim=LABEL_SIMS, max_time=MAX_TIME,
+        hidden_dim_array=(64,), datasets_array=(dataset,), experiments_root=root,
+        worker_flags=("--spmm", "auto", "--checkpoint_every", "1", "--die_at_epoch", "1"))
+    i_indices, betas, gammas = monitorer._load_or_create_params(cfg, dataset, save_dir)
+    if len(i_indices) != len(trials):
+        raise AssertionError("the job does not reuse the labelled trials")
+    plain = dataclasses.replace(cfg, worker_flags=("--spmm", "auto", "--auto_checkpoint", "0"))
+    argv = monitorer.build_worker_argv(plain, dataset, save_dir, 64, 1, i_indices, betas, gammas)
+    spmm2.launches = spmm2.backward_launches = 0  # the uninterrupted run starts here
+    printed, _ = run_worker(argv, graph)
+    launches = (spmm2.launches, spmm2.backward_launches)  # and ends here
+    want = training_history(printed, CRASH_EPOCHS)
+    want_row = csv_rows(save_dir, graph.name)[-1]
+    with FdCapture(1) as out, FdCapture(2) as err:
+        t0 = time.perf_counter()
+        rc = monitorer.run_matrix(cfg, use_subprocess=True, retries=1, retry_wait_s=0,
+                                  device="cuda")
+        seconds = time.perf_counter() - t0
+    printed = out.text
+    resumed = [(float(a), float(b)) for a, b in re.findall(
+        r"Train Loss: ([0-9.eE+-]+), Val Loss: ([0-9.eE+-]+)", printed)]
+    if (rc != 0 or "[fault-injection] dying at epoch 1" not in printed
+            or "worker exited with 17" not in err.text
+            or "resumed from" not in printed or "attempt 1/2 failed" not in printed):
+        raise AssertionError(f"crash and resume did not run as drilled (rc {rc}):\n"
+                             f"{printed[-4000:]}\n{err.text[-4000:]}")
+    # the first attempt printed epoch 0 (it dies in the logger of epoch 1,
+    # before epoch 1's line), the resumed one epochs 1 and 2
+    if resumed != [r[:2] for r in want]:
+        raise AssertionError(f"resumed history {resumed} differs from the uninterrupted {want}")
+    row = csv_rows(save_dir, graph.name)[-1]
+    keys = ("trial", "best_epoch", "val_loss", "test_loss")
+    if any(row[c] != want_row[c] for c in keys):
+        raise AssertionError(f"resumed CSV row {row} differs from the uninterrupted {want_row}")
+    return {"part": "crash_resume", "n": graph.n_nodes, "epochs": CRASH_EPOCHS,
+            "die_at_epoch": 1, "child_exit": 17, "seconds_two_processes": seconds,
+            "history": [list(r) for r in resumed], "csv_row": {c: row[c] for c in keys},
+            "equal_to_uninterrupted": True,
+            "k1_launches": launches[0], "k1_backward_launches": launches[1],
+            "launches_counted": "the uninterrupted run in this process; the worker "
+                                "processes' are not counted"}
+
+
+def _step_grads(model, params, adj, data, device):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = (spmm2.launches, spmm2.backward_launches)
+    loss, grads, _ = _loss_and_grads(model, params, adj, data, device)
+    torch.cuda.synchronize()
+    return (loss, grads, torch.cuda.max_memory_allocated() / 1e9,
+            (spmm2.launches - before[0], spmm2.backward_launches - before[1]))
+
+
+def matrix_backsolve(graph, small, trials, save_dir) -> dict:
+    """One training step (batch 1, C7's field at hidden 64, K1) with
+    ``adjoint='backsolve'`` against ``direct`` on the card.
+
+    At enron size with C7's own solver (euler, deltaT 0.5, maxTime 20, as
+    trained) the loss is held (1e-6 relative: the forward is the same) and
+    the gradient gap is reported, not held: reversing the integration is
+    unstable where the field is stiff (a hub of 1,436 neighbours), so the
+    reconstructed state runs off, as it would in the JAX package. The
+    gradient is held (every leaf within 2e-3 of its scale) on the
+    fb-food-size graph with rk4 at deltaT 0.125 over maxTime 5, where the
+    reverse reconstruction is accurate."""
+    out = {"part": "backsolve", "hidden": 64, "batch_size": 1}
+    spmm2.launches = spmm2.backward_launches = 0  # the path starts here
+    for case, g, method, max_time, delta_t, held in (
+            ("enron_c7_euler", graph, "euler", MAX_TIME, 0.5, False),
+            ("fb_food_rk4_fine", small, "rk4", 5, 0.125, True)):
+        lt = trials if g is graph else label_trials(g)
+        triples = load_or_extract_labels_many(
+            g, lt[:1], sim=LABEL_SIMS if g is graph else MG_SIMS, max_time=max_time,
+            save_dir=save_dir, device="cuda")
+        data = build_trial_data(g.n_nodes, [lt[0][0]], [lt[0][1]], [lt[0][2]], triples)
+        adj = Spmm2Adj.from_graph(g, device="cuda")
+        cfg = dict(hidden=64, method=method, max_time=max_time, delta_t=delta_t)
+        start = GNODE(**cfg).init(torch.Generator().manual_seed(SEED), device="cpu")
+        sides = {adjoint: _step_grads(GNODE(**cfg, adjoint=adjoint), start, adj, data, "cuda")
+                 for adjoint in ("direct", "backsolve")}
+        (l_d, g_d, mem_d, k_d), (l_b, g_b, mem_b, k_b) = sides["direct"], sides["backsolve"]
+        rel = {k: float((g_b[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+               for k, v in g_d.items() if k != "dec2/b"}  # dec2/b: rounding noise
+        evals = (int(round(max_time / delta_t)) - 1) * (4 if method == "rk4" else 1)
+        # direct: the forward and its gradient; backsolve: the forward without
+        # a graph, then per reverse evaluation one K1 and one K1-bwd
+        if k_b != (3 * evals, evals) or k_d != (2 * evals, evals):
+            raise AssertionError(
+                f"{case}: K1 launches (all, backward) direct {k_d}, backsolve {k_b}; "
+                f"expected ({2 * evals}, {evals}) and ({3 * evals}, {evals})")
+        loss_rel = abs(l_b - l_d) / abs(l_d)
+        if loss_rel > 1e-6 or (held and max(rel.values()) > BACKSOLVE_GRAD_RTOL):
+            raise AssertionError(f"{case}: backsolve vs direct loss {loss_rel}, leaves {rel}")
+        out[case] = {"n": g.n_nodes, "max_degree": int(g.degrees.max()), "method": method,
+                     "max_time": max_time, "delta_t": delta_t, "loss_rel_err": loss_rel,
+                     "grad_rel_err_worst": max(rel.values()), "grad_rel_err": rel,
+                     "gradient_held": held,
+                     "k1_launches": {"direct": list(k_d), "backsolve": list(k_b)},
+                     "peak_memory_gb": {"direct": mem_d, "backsolve": mem_b}}
+    out["k1_launches"], out["k1_backward_launches"] = spmm2.launches, spmm2.backward_launches
+    out["tol"] = f"loss 1e-6 relative; fb_food_rk4_fine leaves {BACKSOLVE_GRAD_RTOL} of their scale"
+    return out
+
+
+def _dopri_setup(graph, spmm, device, budget, batch):
+    args = worker.build_parser().parse_args(
+        ["--hidden", "64", "--method", "dopri5_adaptive", "--spmm", spmm, "--device", device])
+    model, adj = worker.build_model_and_adj(args, graph, batch_size=batch)
+    return dataclasses.replace(model, solver_budget=budget), adj
+
+
+def _dopri_scenarios(graph):
+    rng = np.random.default_rng([SEED, 5])
+    seeds = [sorted(rng.choice(graph.n_nodes, 3, replace=False).tolist())
+             for _ in range(DISPATCH_BATCH)]
+    return infer.scenario_batch(graph.n_nodes, seeds, rng.uniform(0.1, 0.5, DISPATCH_BATCH),
+                                rng.uniform(0.05, 0.3, DISPATCH_BATCH))
+
+
+def matrix_dopri(graph, small) -> dict:
+    """``method='dopri5_adaptive'`` in serving. At enron size, eight
+    scenarios in one dispatch with a budget of ``DOPRI_BUDGET`` attempts (the
+    default 78 would hold 4 x 78 states of [8, n, 64], 65 GB): ms per
+    dispatch and K1's six launches per attempt plus one. That budget is
+    starved, so whether an attempt is accepted follows the last bits of the
+    error estimate: the same dispatch with the neighbour sum in another
+    order (the COO adjacency, plain ``index_add_``) is reported beside it,
+    not held. Held: the fb-food-size graph through K1 with the default
+    budget, eight scenarios on the card against the CPU within
+    ``DOPRI_ATOL``."""
+    model, adj = _dopri_setup(graph, "auto", "cuda", DOPRI_BUDGET, DISPATCH_BATCH)
+    params_cpu = model.init(torch.Generator().manual_seed(SEED), device="cpu")
+    params = tree_map(lambda t: t.to("cuda"), params_cpu)
+    sb = _dopri_scenarios(graph)
+    infer.predict_summaries(model, params, adj, *sb)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spmm2.launches = 0  # the path starts here
+    t0 = time.perf_counter()
+    card = infer.predict_scenarios(model, params, adj, *sb)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = spmm2.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != 6 * DOPRI_BUDGET + 1:
+        raise AssertionError(f"dopri5_adaptive: {launches} K1 launches, expected "
+                             f"{6 * DOPRI_BUDGET + 1}")
+    if (card.shape != (MAX_TIME, DISPATCH_BATCH, graph.n_nodes, 3) or not np.isfinite(card).all()
+            or np.abs(card.sum(-1) - 1.0).max() > 1e-5):
+        raise AssertionError(f"dopri5_adaptive output {card.shape} is not finite probabilities")
+    coo_model, coo_adj = _dopri_setup(graph, "coo", "cuda", DOPRI_BUDGET, DISPATCH_BATCH)
+    reordered = infer.predict_scenarios(coo_model, params, coo_adj, *sb)
+
+    budget = 2 * EULER_STEPS  # the default: 2 (T - 1) attempts for T = 40 grid points
+    model_s, adj_s = _dopri_setup(small, "pallas2", "cuda", 0, DISPATCH_BATCH)
+    cpu_model, cpu_adj = _dopri_setup(small, "pallas2", "cpu", 0, DISPATCH_BATCH)
+    sb_s = _dopri_scenarios(small)
+    before = spmm2.launches
+    card_s = infer.predict_scenarios(model_s, params, adj_s, *sb_s)
+    launches_s = spmm2.launches - before
+    launches = spmm2.launches  # and ends here
+    cpu_s = infer.predict_scenarios(cpu_model, params_cpu, cpu_adj, *sb_s)
+    err = float(np.abs(card_s - cpu_s).max())
+    if launches_s != 6 * budget + 1 or not np.isfinite(card_s).all() or err > DOPRI_ATOL:
+        raise AssertionError(f"dopri5_adaptive at {small.n_nodes} nodes: {launches_s} K1 "
+                             f"launches, card vs CPU max abs err {err}")
+    return {"part": "dopri5_adaptive", "hidden": 64, "scenarios": DISPATCH_BATCH,
+            "enron": {"n": graph.n_nodes, "budget": DOPRI_BUDGET, "ms_per_dispatch": ms,
+                      "k1_per_dispatch": 6 * DOPRI_BUDGET + 1, "peak_memory_gb": peak,
+                      "max_abs_diff_other_sum_order": float(np.abs(card - reordered).max())},
+            "held": {"n": small.n_nodes, "budget": budget, "k1_per_dispatch": launches_s,
+                     "max_abs_err_vs_cpu": err, "atol": DOPRI_ATOL},
+            "k1_launches": launches}
+
+
+def matrix_node_split(graph, trials, save_dir) -> dict:
+    """``cli.worker --node_split`` (C6: relu, rk4, layer-normed derivative,
+    hidden 64) on one trial at beta 0.2 (64 RK substeps on the hub), one
+    epoch, and the RK baseline."""
+    nodes = trials[0][0]
+    argv = ["--node_split", "--model", "ode_nn", "--hidden", "64", "--maxTime", str(MAX_TIME),
+            "--deltaT", "0.5", "--lr", "1e-3", "--epochs", "1", "--sim", str(LABEL_SIMS),
+            "--spmm", "auto", "--dataset", graph.name, "--path_to_save", save_dir,
+            "--trial", "31", "--I_indices", str(nodes), "--beta", "0.2", "--gamma", "0.1"]
+    spmm2.launches = spmm2.backward_launches = sir_step.launches = 0  # the path starts here
+    printed, seconds = run_worker(argv, graph)
+    launches = (spmm2.launches, spmm2.backward_launches, sir_step.launches)  # ends here
+    row = csv_rows(save_dir, graph.name)[-1]
+    evals = 4 * EULER_STEPS  # rk4
+    # forward, the checkpoint adjoint's recompute, and the test pass; backward
+    if launches[:2] != (4 * evals, evals) or row["trial"] != "31" or not (
+            0.0 < float(row["test_loss"]) < 1.0 and float(row["loss_baseline"]) > 0.0):
+        raise AssertionError(f"node split: K1 launches {launches[:2]}, CSV row {row}")
+    return {"part": "node_split", "n": graph.n_nodes, "model": "C6", "hidden": 64,
+            "epochs": 1, "seconds": seconds, "rk_time_s": float(row["rk_time"]),
+            "csv_row": {c: row[c] for c in ("trial", "best_epoch", "val_loss", "test_loss",
+                                            "loss_baseline", "n_ode_time", "rk_time")},
+            "k1_launches": launches[0], "k1_backward_launches": launches[1],
+            "k2_launches": launches[2]}
+
+
+def phase_matrix_single(graph, trials, small, root, save_dir) -> dict:
+    """The single-graph parts of the experiment matrix at enron size."""
+    parts = {}
+    for name, fn in (("ensemble", lambda: matrix_ensemble(graph, trials, save_dir)),
+                     ("crash", lambda: matrix_crash_resume(graph, trials, root)),
+                     ("backsolve", lambda: matrix_backsolve(graph, small, trials, save_dir)),
+                     ("dopri", lambda: matrix_dopri(graph, small)),
+                     ("node_split", lambda: matrix_node_split(graph, trials, save_dir))):
+        parts[name] = fn()
+        emit({"phase": "matrix", **parts[name], "ok": True})
+        torch.cuda.empty_cache()
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1237,13 +1701,19 @@ def main() -> int:
     k2 = phase_kernel_k2(graph, trials[:chunk])
     k1b, k1b_mg = phase_kernel_bwd(graph, mg_graphs)
     serve = phase_serve(graph)
-    with tempfile.TemporaryDirectory() as save_dir:
+    with tempfile.TemporaryDirectory() as root:
+        # the reference's layout, so that the matrix's jobs find the labels
+        save_dir = os.path.join(root, f"Experiments-seed2-{graph.name}")
+        os.makedirs(save_dir)
         labels = phase_labels(graph, trials, save_dir, chunk)
         train = phase_train(graph, trials, save_dir)
+        matrix = phase_matrix_single(graph, trials, mg_graphs[FB_FOOD], root, save_dir)
     del graph
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as save_dir:
         mg = phase_multigraph(mg_graphs, save_dir)
+        matrix["multigraph"] = matrix_multigraph(mg_graphs, save_dir)
+        emit({"phase": "matrix", **matrix["multigraph"], "ok": True})
     with tempfile.TemporaryDirectory() as save_dir:
         phase_baselines(mg_graphs[WIKI], mg_graphs[FB_SOCIAL], save_dir)
     times = lambda row: {
@@ -1255,17 +1725,19 @@ def main() -> int:
     kernel = lambda name, source, replaces, launches, row, more=(): {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, **times(row), "cases": [times(r) for r in more]}
-    forward = lambda phase: phase["k1_launches"] - phase["k1_backward_launches"]
+    forward = lambda phase: phase["k1_launches"] - phase.get("k1_backward_launches", 0)
+    paths = [train, mg, *matrix.values()]
     emit({"kernels": [
         kernel("spmm2", "gn_ode_sir_tpu_torch/csrc/spmm2.cu",
                "gn_ode_sir_tpu/ops/pallas_spmm2.py:119",
-               serve["k1_launches"] + forward(train) + forward(mg), k1, k1_mg),
+               serve["k1_launches"] + sum(forward(p) for p in paths), k1, k1_mg),
         kernel("spmm2_bwd", "gn_ode_sir_tpu_torch/csrc/spmm2.cu",
                "gn_ode_sir_tpu/ops/pallas_spmm2.py:239",
-               train["k1_backward_launches"] + mg["k1_backward_launches"], k1b, k1b_mg),
+               sum(p.get("k1_backward_launches", 0) for p in paths), k1b, k1b_mg),
         kernel("sir_step", "gn_ode_sir_tpu_torch/csrc/sir_step.cu",
                "gn_ode_sir_tpu/sim/pallas_step.py:36",
-               labels["k2_launches"] + mg["k2_launches"], k2)]})
+               labels["k2_launches"] + mg["k2_launches"]
+               + matrix["node_split"]["k2_launches"], k2)]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

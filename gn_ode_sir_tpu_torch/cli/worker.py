@@ -7,31 +7,34 @@ worker plus ``--device``:
       --I_indices "[25, 18]" "[1, 27]" --beta 0.47 0.26 --gamma 0.31 0.33 \\
       --path_to_save ./experiments/karate
 
-Ported: ``--model ode_nn|GCN|GIN`` on a single graph, with and without
-``--out_of_dist``, and on a ``+``-joined multi-graph dataset (train on all
-graphs but the last, evaluate on the unseen last one; ``--mg_adj``,
+What it runs: ``--model ode_nn|GCN|GIN`` on a single graph, with and
+without ``--out_of_dist``, and on a ``+``-joined multi-graph dataset (train
+on all graphs but the last, evaluate on the unseen last one; ``--mg_adj``,
 ``--mg_precision``, ``--instances_per_graph``) — Monte-Carlo labels on cache
 miss, training, the reference-schema CSV row, and ``--save_checkpoint`` (a
-``serve.pt`` that ``cli.infer --ckpt`` scores); the closed-form baselines
-``--model dmp`` and ``--model rk``, and ``--rk_baseline``, which fills the
-``loss_baseline`` and ``rk_time`` columns. The model and adjacency
-construction is shared with ``cli.infer``. What is left (``--ensemble``,
-``--node_split``, periodic checkpoints and resume) raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``serve.pt`` that ``cli.infer --ckpt`` scores); ``--ensemble K`` (K repeats
+in one run, ``train/ensemble.py``, K CSV rows for trials ``--trial`` +
+j); ``--node_split`` (the legacy transductive protocol on the first trial);
+periodic checkpoints and resume (``--checkpoint_every``, ``--resume``,
+``--auto_checkpoint``) and the ``--die_at_epoch`` crash drill; the solver
+options ``--method dopri5_adaptive`` and ``--adjoint backsolve``; the
+closed-form baselines ``--model dmp`` and ``--model rk``, and
+``--rk_baseline``, which fills the ``loss_baseline`` and ``rk_time``
+columns. The model and adjacency construction is shared with ``cli.infer``.
+What is left (``--spmm ell``) raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import pickle
 import time
 
 import numpy as np
 import torch
-
-
-AUTO_CHECKPOINT_DEFAULT = 600  # seconds, the JAX worker's default
 
 
 def parse_i_indices(raw) -> list[list[int]]:
@@ -73,9 +76,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train_val_test_ratio", nargs=3, type=float, default=[0.6, 0.2, 0.2])
     p.add_argument("--model", default="ode_nn", choices=["ode_nn", "GCN", "GIN", "dmp", "rk"])
     p.add_argument("--out_of_dist", default=False, action="store_true")
-    p.add_argument("--method", default="euler", help="ODE solver (euler/midpoint/rk4/dopri5)")
+    p.add_argument("--method", default="euler",
+                   help="ODE solver (euler/midpoint/rk4/dopri5/dopri5_adaptive)")
     p.add_argument("--adjoint", default="auto",
-                   help="auto|checkpoint|direct (auto: direct while the "
+                   help="auto|checkpoint|direct|backsolve (auto: direct while the "
                         "trajectory fits 1/8 of device memory, else checkpoint)")
     p.add_argument("--solver_unroll", type=int, default=0,
                    help="accepted for flag parity (0 = auto)")
@@ -84,18 +88,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model-init seed, decoupled from --seed. Default: --seed.")
     p.add_argument("--eval_batch_size", type=int, default=8)
     p.add_argument("--ensemble", type=int, default=0,
-                   help="train K repeats of this experiment as one program")
+                   help="train K repeats of this experiment in one run; member j "
+                        "uses init seed --init_seed+j and writes the CSV row of "
+                        "trial --trial+j, as K sequential workers would")
     p.add_argument("--rk_baseline", action="store_true", help="also run the RK mean-field baseline")
     p.add_argument("--save_checkpoint", action="store_true", help="save best params")
     p.add_argument("--checkpoint_every", type=int, default=0,
                    help="periodic checkpoint interval (epochs)")
     p.add_argument("--resume", action="store_true",
                    help="resume a crashed run from its periodic checkpoint")
-    p.add_argument("--auto_checkpoint", type=int, default=AUTO_CHECKPOINT_DEFAULT,
-                   help="seconds between automatic periodic checkpoints; "
-                        "not ported yet, any value but the default raises")
+    p.add_argument("--auto_checkpoint", type=int, default=600,
+                   help="save periodic checkpoints (every ~5 minutes) once the "
+                        "measured epoch time projects the run past this many "
+                        "seconds; 0 disables")
     p.add_argument("--die_at_epoch", type=int, default=None,
-                   help="fault injection: exit (code 17) at this epoch")
+                   help="fault injection for crash drills: exit (code 17) at this "
+                        "epoch; a --resume run is the recovery and does not die")
     p.add_argument("--log_every", type=int, default=1)
     p.add_argument("--instances_per_graph", type=int, nargs="+", default=None,
                    help="trials per graph; last graph is the unseen eval graph")
@@ -175,25 +183,28 @@ def build_model_and_adj(args, g, *, batch_size=None, device=None):
     the normalized weights (where the JAX package takes its COO segment sum:
     the port takes for GCN what its ``auto`` takes for GN-ODE there). GIN
     takes the raw-sum ``auto`` adjacency."""
+    device = resolve_device(args.device) if device is None else torch.device(device)
+    model = build_model(args, g.n_nodes, batch_size=batch_size, device=device)
+    return model, _adjacency(args, g, device)
+
+
+def _adjacency(args, g, device):
+    """The single-graph adjacency of ``args.model`` (see
+    :func:`build_model_and_adj`); the node-split run takes the same."""
     from gn_ode_sir_tpu_torch.ops import DENSE_NODE_THRESHOLD, gcn_norm_edges
     from gn_ode_sir_tpu_torch.ops.adjacency import DenseAdj, adjacency_from_graph
     from gn_ode_sir_tpu_torch.ops.spmm2 import Spmm2Adj
 
-    device = resolve_device(args.device) if device is None else torch.device(device)
-    model = build_model(args, g.n_nodes, batch_size=batch_size, device=device)
     if args.model == "ode_nn":
-        adj = adjacency_from_graph(g, kind=args.spmm, device=device)
-    elif args.model == "GCN":
+        return adjacency_from_graph(g, kind=args.spmm, device=device)
+    if args.model == "GCN":
         src, dst, w = gcn_norm_edges(g)
         if g.n_nodes <= DENSE_NODE_THRESHOLD:
             a = np.zeros((g.n_nodes, g.n_nodes), np.float32)
             a[dst, src] = w
-            adj = DenseAdj(torch.as_tensor(a, device=device))
-        else:
-            adj = Spmm2Adj.from_edges(src, dst, g.n_nodes, w, device=device)
-    else:  # GIN
-        adj = adjacency_from_graph(g, kind="auto", device=device)
-    return model, adj
+            return DenseAdj(torch.as_tensor(a, device=device))
+        return Spmm2Adj.from_edges(src, dst, g.n_nodes, w, device=device)
+    return adjacency_from_graph(g, kind="auto", device=device)  # GIN
 
 
 def checkpoint_dir_for(path_to_save: str, trial, model: str, dataset: str,
@@ -292,41 +303,92 @@ def get_splits(args, n_trials: int):
     return d["train"], d["val"], test
 
 
-def _save_result_rows(cfg, dataset_name, res, loss_baseline=0.0, rk_time=0.0):
-    """Write the run's CSV row. ``loss_baseline`` and ``rk_time`` come from
-    the RK mean-field baseline (``--rk_baseline``), else 0."""
+class _FaultInjection:
+    """The crash drill of ``--die_at_epoch``: exits the worker (code 17) once
+    training reaches the epoch, after that epoch's metrics are logged and
+    before its checkpoint, so that ``--resume`` must recover the state from
+    the last periodic checkpoint. It rides the ``metrics_logger`` seam, so
+    the training loop has no drill-specific hook."""
+
+    def __init__(self, epoch: int):
+        self.epoch = epoch
+
+    def log(self, epoch, **kw):
+        if epoch >= self.epoch:
+            print(f"[fault-injection] dying at epoch {epoch}", flush=True)
+            raise SystemExit(17)
+
+
+def _fit_kwargs(args) -> dict:
+    """What ``fit`` and ``fit_ensemble`` take from the flags besides the data:
+    the epochs and batches, the crash drill, and the checkpoint directory
+    (armed by ``--checkpoint_every``, ``--resume`` or ``--auto_checkpoint``)."""
+    armed = args.checkpoint_every or args.resume or args.auto_checkpoint
+    return dict(
+        epochs=args.epochs, batch_size=args.batch_size, eval_batch_size=args.eval_batch_size,
+        verbose=True, log_every=args.log_every,
+        # the drill kills the first attempt; the --resume attempt that
+        # recovers it (a monitorer retry keeps the job's flags) runs through
+        metrics_logger=(None if args.die_at_epoch is None or args.resume
+                        else _FaultInjection(args.die_at_epoch)),
+        checkpoint_dir=(checkpoint_dir_for(args.path_to_save, args.trial, args.model,
+                                           args.dataset, ensemble=args.ensemble)
+                        if armed else None),
+        checkpoint_every=args.checkpoint_every, checkpoint_auto_s=float(args.auto_checkpoint),
+        resume=args.resume)
+
+
+def _fit_or_ensemble(args, model, data, splits, conn_kwargs, *, device, **kw):
+    """``fit`` from ``--init_seed``, or with ``--ensemble K`` the K-repeat
+    ``fit_ensemble`` whose member j is seeded as the sequential run with
+    ``--init_seed`` + j."""
+    from gn_ode_sir_tpu_torch.train import fit, fit_ensemble, init_ensemble
+
+    opt = lambda leaves: torch.optim.Adam(leaves, lr=args.lr)
+    if args.ensemble > 1:
+        seeds = [args.init_seed + j for j in range(args.ensemble)]
+        res = fit_ensemble(model, opt, init_ensemble(model, seeds, device=device), data,
+                           *splits, **conn_kwargs, seeds=seeds, **_fit_kwargs(args), **kw)
+        print(f"ensemble routes (training, evaluation): {res.routes}")
+        return res
+    params = model.init(torch.Generator().manual_seed(args.init_seed), device=device)
+    return fit(model, opt, params, data, *splits, **conn_kwargs, seed=args.init_seed,
+               **_fit_kwargs(args), **kw)
+
+
+def _save_result_rows(cfg, dataset_name, res, args, loss_baseline=0.0, rk_time=0.0):
+    """Write the run's CSV row(s): one for a ``fit`` result, K for an
+    ensemble (trial ``--trial`` + j for member j), the rows K sequential
+    workers with init seeds ``--init_seed`` + j would write.
+    ``loss_baseline`` and ``rk_time`` come from the RK mean-field baseline
+    (``--rk_baseline``), else 0."""
     from gn_ode_sir_tpu_torch.utils.csvsink import save_trial_to_csv
 
-    save_trial_to_csv(cfg, dataset_name, res.best_epoch, res.best_val_loss,
-                      res.test_loss, loss_baseline, res.test_time, rk_time)
+    if args.ensemble > 1:
+        for j in range(args.ensemble):
+            save_trial_to_csv(dataclasses.replace(cfg, trial=args.trial + j), dataset_name,
+                              int(res.best_epoch[j]), float(res.best_val_loss[j]),
+                              float(res.test_loss[j]), loss_baseline, res.test_time, rk_time)
+    else:
+        save_trial_to_csv(cfg, dataset_name, res.best_epoch, res.best_val_loss,
+                          res.test_loss, loss_baseline, res.test_time, rk_time)
+
+
+def _print_test_loss(args, res, suffix=""):
+    if args.ensemble > 1:
+        for j in range(args.ensemble):
+            print(f"Test Loss{suffix}: {float(res.test_loss[j]):.5f} at epoch: "
+                  f"{int(res.best_epoch[j]):03d} (trial {args.trial + j})")
+    else:
+        print(f"Test Loss{suffix}: {res.test_loss:.5f} at epoch: {res.best_epoch:03d}")
 
 
 def run_trainable(args, g, data, splits):
-    from gn_ode_sir_tpu_torch.train import fit
-
-    tr, va, te = splits
     device = resolve_device(args.device)
     model, adj = build_model_and_adj(args, g, device=device)
-    params = model.init(torch.Generator().manual_seed(args.init_seed), device=device)
-    res = fit(
-        model,
-        lambda leaves: torch.optim.Adam(leaves, lr=args.lr),
-        params,
-        data,
-        tr,
-        va,
-        te,
-        lambda gi: adj,
-        seed=args.init_seed,
-        epochs=args.epochs,
-        batch_size=args.batch_size,
-        eval_batch_size=args.eval_batch_size,
-        verbose=True,
-        log_every=args.log_every,
-        # out-of-dist runs need the per-trial test-loss vector for the
-        # first OOD CSV
-        track_test_per_trial=args.out_of_dist,
-    )
+    # out-of-dist runs need the per-trial test-loss vector for the first OOD CSV
+    res = _fit_or_ensemble(args, model, data, splits, {"adj_fn": lambda gi: adj},
+                           device=device, track_test_per_trial=args.out_of_dist)
     if args.save_checkpoint:
         _save_serve_checkpoint(args, res)
     return res
@@ -335,12 +397,14 @@ def run_trainable(args, g, data, splits):
 def _save_serve_checkpoint(args, res):
     """Best-val-epoch params as ``<ckpt dir>/serve.pt`` — the weights the
     reported test_loss was scored with (``FitResult.best_params``; the
-    final-epoch params would be a different, possibly overfit model)."""
+    final-epoch params would be a different, possibly overfit model). An
+    ensemble's K-stacked params go to its ``-ensK`` directory, which a
+    sequential run of the same trial does not read."""
     from gn_ode_sir_tpu_torch.train.checkpoint import save_params
 
     best = res.best_params if res.best_params is not None else res.params
-    save_params(checkpoint_dir_for(args.path_to_save, args.trial, args.model, args.dataset),
-                best)
+    save_params(checkpoint_dir_for(args.path_to_save, args.trial, args.model, args.dataset,
+                                   ensemble=args.ensemble), best)
 
 
 def _test_seed_sets(data, te, n_nodes):
@@ -399,7 +463,6 @@ def run_multigraph(args, graphs=None):
     ``--dataset`` (loading needs networkx)."""
     from gn_ode_sir_tpu_torch.train import (
         assemble_multigraph_trials,
-        fit,
         multigraph_auto_fns,
         multigraph_split,
     )
@@ -506,13 +569,7 @@ def run_multigraph(args, graphs=None):
         precision=args.mg_precision, device=device)
     print(f"multigraph adjacency backend: {conn.kind}")
 
-    params = model.init(torch.Generator().manual_seed(args.init_seed), device=device)
-    res = fit(
-        model, lambda leaves: torch.optim.Adam(leaves, lr=args.lr), params,
-        data, tr, va, te, **conn.fit_kwargs(), seed=args.init_seed,
-        epochs=args.epochs, batch_size=args.batch_size,
-        eval_batch_size=args.eval_batch_size, verbose=True, log_every=args.log_every,
-    )
+    res = _fit_or_ensemble(args, model, data, (tr, va, te), conn.fit_kwargs(), device=device)
 
     # RK mean-field baseline on the UNSEEN graph's test trials
     loss_baseline, rk_time = 0.0, 0.0
@@ -526,13 +583,76 @@ def run_multigraph(args, graphs=None):
         sim=args.sim, dataset=args.dataset, path_to_save=args.path_to_save,
         train_val_test_ratio=list(args.train_val_test_ratio), trial=args.trial,
     )
-    _save_result_rows(cfg, "+".join(names), res, loss_baseline, rk_time)
-    print(f"Test Loss (unseen graph {names[-1]}): {res.test_loss:.5f} at epoch: "
-          f"{res.best_epoch:03d}")
+    _save_result_rows(cfg, "+".join(names), res, args, loss_baseline, rk_time)
+    _print_test_loss(args, res, suffix=f" (unseen graph {names[-1]})")
     if args.save_checkpoint:
         # the params are graph-agnostic, so this checkpoint serves ANY graph
         # through cli/infer.py
         _save_serve_checkpoint(args, res)
+    return 0
+
+
+def run_node_split(args, graph=None):
+    """The legacy transductive protocol: one trial, the graph's nodes split
+    60/20/20, the C6 GN-ODE (relu, rk4, layer-normed derivative) or the
+    3-feature GCN/GIN, and the RK mean-field baseline at the end (on every
+    node and on the test nodes; the test MAE fills ``loss_baseline``)."""
+    from gn_ode_sir_tpu_torch.models import GCN, GIN, TimeUnrolledSIR
+    from gn_ode_sir_tpu_torch.models.gnode import legacy_dense_gnode
+    from gn_ode_sir_tpu_torch.sim import sir_classical
+    from gn_ode_sir_tpu_torch.train import fit_node_split, node_split_indices
+    from gn_ode_sir_tpu_torch.utils.config import ExperimentConfig
+    from gn_ode_sir_tpu_torch.utils.csvsink import save_trial_to_csv
+
+    # the legacy CLI convention: a flat int list is ONE seed set
+    # ("--I_indices 25 18" == seeds {25, 18}), unlike the per-trial
+    # list-strings of the batched protocol
+    if len(args.I_indices) > 1 and all("[" not in str(s) and "," not in str(s)
+                                       for s in args.I_indices):
+        args.I_indices = ["[" + ", ".join(str(s) for s in args.I_indices) + "]"]
+    device = resolve_device(args.device)
+    g, i_indices, data = load_experiment(args, graph)
+    print(f"nodes {g.n_nodes}\nedges {g.n_edges // 2}")
+    seeds, beta, gamma = i_indices[0], args.beta[0], args.gamma[0]
+    labels = data.labels[0]  # [T, n, 3]
+    idx_train, idx_val, idx_test = node_split_indices(g.n_nodes,
+                                                      tuple(args.train_val_test_ratio))
+    if args.model == "ode_nn":
+        model = legacy_dense_gnode(hidden=args.hidden, max_time=args.maxTime,
+                                   delta_t=args.deltaT)
+    else:  # the legacy 3-feature GCN / GIN
+        gnn = GCN if args.model == "GCN" else GIN
+        model = TimeUnrolledSIR(gnn(input_dim=3, hidden_dim=args.hidden,
+                                    penultimate_dim=max(args.hidden // 2, 1),
+                                    window=args.maxTime), with_rates=False)
+    adj = _adjacency(args, g, device)
+    params = model.init(torch.Generator().manual_seed(args.init_seed), device=device)
+    res = fit_node_split(
+        model, lambda leaves: torch.optim.Adam(leaves, lr=args.lr), params, adj,
+        data.s0[0], data.i0[0], data.r0[0], beta, gamma, labels,
+        idx_train=idx_train, idx_val=idx_val, idx_test=idx_test,
+        epochs=args.epochs, verbose=True, log_every=args.log_every)
+    print(f"Test Loss: {res.test_loss:.5f} at epoch: {res.best_epoch:03d}")
+
+    t0 = time.time()
+    i_t, s_t, r_t = sir_classical(g, seeds, beta, gamma, delta_t=args.deltaT,
+                                  max_time=args.maxTime, device=device)
+    pred = np.stack([s_t, i_t, r_t], -1)
+    loss_baseline_full = float(np.abs(pred - labels).mean())
+    rk_time = time.time() - t0
+    loss_baseline = float(np.abs(pred[:, idx_test] - labels[:, idx_test]).mean())
+    print(f"Runge-kutta baseline Loss: {loss_baseline_full:.5f}")
+    print(f"Runge-kutta baseline test Loss: {loss_baseline:.5f}")
+
+    cfg = ExperimentConfig(
+        model=args.model, hidden=args.hidden, lr=args.lr, epochs=args.epochs,
+        batch_size=args.batch_size, beta=list(args.beta), gamma=list(args.gamma),
+        i_indices=i_indices, delta_t=args.deltaT, max_time=args.maxTime,
+        sim=args.sim, dataset=args.dataset, path_to_save=args.path_to_save,
+        train_val_test_ratio=list(args.train_val_test_ratio), trial=args.trial,
+    )
+    save_trial_to_csv(cfg, g.name, res.best_epoch, res.best_val_loss, res.test_loss,
+                      loss_baseline, res.test_time, rk_time)
     return 0
 
 
@@ -577,20 +697,24 @@ def _apply_config_defaults(parser, argv):
 
 
 def _refuse_unported(args) -> None:
-    """What the JAX worker does and the port does not yet raises here,
-    naming the ROADMAP.md item that ports it."""
-    unported = [
-        (args.ensemble > 1, "--ensemble", "train/ensemble.py"),
-        (args.node_split, "--node_split", "train/node_split.py"),
-        (args.checkpoint_every or args.resume or args.die_at_epoch is not None
-         or args.auto_checkpoint != AUTO_CHECKPOINT_DEFAULT,
-         "--checkpoint_every/--resume/--auto_checkpoint/--die_at_epoch",
-         "train/checkpoint.py + resume in fit"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md Queue 1: {item})")
+    """What the JAX worker does and the port does not yet raises here, before
+    any label is extracted, naming the ROADMAP.md item that ports it."""
+    if args.spmm == "ell" and args.model == "ode_nn":
+        raise NotImplementedError(
+            "--spmm ell is not ported yet (ROADMAP.md Queue 1 item 16: ops/ell.py)")
+
+
+def _check_modes(args) -> None:
+    """The JAX worker's refusals of mode combinations."""
+    if args.ensemble > 1:
+        if args.node_split:
+            raise SystemExit(
+                "--ensemble covers the batched trainable protocols only (the "
+                "transductive node-split engine runs sequentially — drop --ensemble)")
+        if args.model in ("dmp", "rk"):
+            raise SystemExit(
+                f"--ensemble is meaningless for --model {args.model}: the closed-form "
+                "baselines have no trained init to repeat")
 
 
 def main(argv=None, graph=None):
@@ -607,6 +731,7 @@ def main(argv=None, graph=None):
     args = parser.parse_args(argv)
     if args.init_seed is None:
         args.init_seed = args.seed
+    _check_modes(args)
     _refuse_unported(args)
     resolve_device(args.device)
     # full-f32 matmuls: TF32 would quietly change every dense A·Z and linear
@@ -615,6 +740,8 @@ def main(argv=None, graph=None):
 
     if "+" in os.path.basename(args.dataset):
         return run_multigraph(args, graph)
+    if args.node_split:
+        return run_node_split(args, graph)
 
     g, i_indices, data = load_experiment(args, graph)
     print(f"nodes {g.n_nodes}\nedges {g.n_edges // 2}")
@@ -645,24 +772,32 @@ def main(argv=None, graph=None):
         loss_baseline, rk_time = run_rk(args, g, data, splits[2])
 
     if not args.out_of_dist:
-        _save_result_rows(cfg, dataset_name, res, loss_baseline, rk_time)
+        _save_result_rows(cfg, dataset_name, res, args, loss_baseline, rk_time)
     else:
-        # out-of-dist runs write the two extra CSVs:
-        # (1) per-test-trial losses, header = test trial indices
-        csv_trials(
-            os.path.join(args.path_to_save, f"Out-of-dist-gamma-{dataset_name}"),
-            [str(int(i)) for i in splits[2]],
-            [float(x) for x in res.test_loss_all],
-        )
-        # (2) the per-run summary row
-        csv_trials(
-            os.path.join(args.path_to_save, f"Out-of-dist-gamma-trials-{dataset_name}"),
-            ["trial", "model", "lr", "epochs", "deltaT", "maxTime", "hidden",
-             "best_epoch", "val_loss", "test_loss", "n_ode_time"],
-            [args.trial, args.model, args.lr, args.epochs, args.deltaT, args.maxTime,
-             args.hidden, res.best_epoch, res.best_val_loss, res.test_loss, res.test_time],
-        )
-    print(f"Test Loss: {res.test_loss:.5f} at epoch: {res.best_epoch:03d}")
+        # out-of-dist runs write the two extra CSVs, an ensemble one row per
+        # member (trial --trial + j), as K sequential workers would
+        k = args.ensemble if args.ensemble > 1 else 0
+        per_trial_rows = [res.test_loss_all[j] for j in range(k)] if k else [res.test_loss_all]
+        summary_rows = ([(args.trial + j, int(res.best_epoch[j]), float(res.best_val_loss[j]),
+                          float(res.test_loss[j])) for j in range(k)] if k else
+                        [(args.trial, res.best_epoch, res.best_val_loss, res.test_loss)])
+        for losses in per_trial_rows:
+            # (1) per-test-trial losses, header = test trial indices
+            csv_trials(
+                os.path.join(args.path_to_save, f"Out-of-dist-gamma-{dataset_name}"),
+                [str(int(i)) for i in splits[2]],
+                [float(x) for x in losses],
+            )
+        for trial, best_epoch, val_loss, test_loss in summary_rows:
+            # (2) the per-run summary row
+            csv_trials(
+                os.path.join(args.path_to_save, f"Out-of-dist-gamma-trials-{dataset_name}"),
+                ["trial", "model", "lr", "epochs", "deltaT", "maxTime", "hidden",
+                 "best_epoch", "val_loss", "test_loss", "n_ode_time"],
+                [trial, args.model, args.lr, args.epochs, args.deltaT, args.maxTime,
+                 args.hidden, best_epoch, val_loss, test_loss, res.test_time],
+            )
+    _print_test_loss(args, res)
     return 0
 
 

@@ -2,11 +2,13 @@
 
 Unpickle, undirect, restrict to the largest connected component. networkx
 is imported inside :func:`load_graph` only, so the package imports on a
-machine without it.
+machine without it; there a pickle of the port's own :class:`Graph` loads
+as it is (how a worker process on such a machine gets its dataset).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 
@@ -19,14 +21,15 @@ def _stem(path: str) -> str:
 
 
 def load_graph(path: str, n_random: int = 50, seed: int = 0) -> Graph:
-    """Load one graph. ``path`` may omit the ``.pkl`` suffix.
+    """Load one graph. ``path`` may omit the ``.pkl`` suffix; the pickle holds
+    a networkx graph or a :class:`Graph` (named after the file).
 
     ``path == 'none'`` returns a G(n, 0.2) random graph, the reference's
     fallback dataset.
     """
-    import networkx as nx
-
     if path == "none":
+        import networkx as nx
+
         G = nx.fast_gnp_random_graph(n_random, 0.2, seed=seed)
         return graph_from_networkx(G, name=f"gnp{n_random}")
 
@@ -38,6 +41,10 @@ def load_graph(path: str, n_random: int = 50, seed: int = 0) -> Graph:
             pkl = os.path.join(root, pkl)
     with open(pkl, "rb") as f:
         G = pickle.load(f)
+    if isinstance(G, Graph):
+        return dataclasses.replace(G, name=_stem(path))
+    import networkx as nx
+
     G = G.to_undirected()
     largest_cc = max(nx.connected_components(G), key=len)
     G = G.subgraph(largest_cc)

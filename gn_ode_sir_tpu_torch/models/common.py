@@ -22,8 +22,44 @@ def linear_init(generator: torch.Generator, fan_in: int, fan_out: int, *,
     return {"w": w.to(device), "b": b.to(device)}
 
 
+class _Linear(torch.autograd.Function):
+    """``x @ w + b`` with its gradient written out (the products autograd
+    takes for it), and a ``vmap`` rule that runs a member axis one member
+    after another. Under ``torch.func.vmap`` over the ensemble's members
+    (``train/ensemble.py``) member j's products and their reductions are
+    then those of a run of member j alone, bit for bit: a batched matmul
+    sums in another order, on a card by 1e-4 of a gradient leaf, and Adam
+    carries that into 1e-3 of the loss within three steps."""
+
+    @staticmethod
+    def forward(x, w, b):
+        return x @ w + b
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, _ = inputs
+        ctx.save_for_backward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        flat = g.reshape(-1, g.shape[-1])
+        gx = (flat @ w.t()).reshape(x.shape) if ctx.needs_input_grad[0] else None
+        gw = x.reshape(-1, x.shape[-1]).t() @ flat if ctx.needs_input_grad[1] else None
+        gb = flat.sum(0) if ctx.needs_input_grad[2] else None
+        return gx, gw, gb
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, b):
+        member = lambda t, d, j: t if d is None else t.select(d, j)
+        return torch.stack([
+            _Linear.apply(*(member(t, d, j) for t, d in zip((x, w, b), in_dims)))
+            for j in range(info.batch_size)]), 0
+
+
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"] + p["b"]
+    """``x @ w + b`` over the last axis of ``x``."""
+    return _Linear.apply(x, p["w"], p["b"])
 
 
 def layer_norm(scale, bias, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

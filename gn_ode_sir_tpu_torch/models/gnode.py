@@ -5,6 +5,11 @@
 - C6, legacy dense single trial: ``activation='relu'``,
   ``deriv_layernorm=True``, ``encode_r=False``, ``method='rk4'``.
 
+``method`` is a fixed-grid solver ('euler', 'midpoint', 'rk4', 'dopri5') or
+'dopri5_adaptive' (budgeted adaptive dopri5 with dense output,
+``solver_budget`` attempts); ``adjoint`` is 'direct', 'checkpoint' or
+'backsolve' (fixed-grid methods only).
+
 Forward math:
   encode:  E_c = relu(W_enc c0 + b_enc),  c in {S, I, R}
   dy/dt:   Z_c = act(W_f E_c + b_f)
@@ -26,6 +31,7 @@ import torch
 
 from gn_ode_sir_tpu_torch.models.common import layer_norm, linear, linear_init
 from gn_ode_sir_tpu_torch.odeint import integer_time_indices, odeint_grid
+from gn_ode_sir_tpu_torch.odeint.dopri import odeint_grid_adaptive
 
 
 def _map_params(fn, params: dict) -> dict:
@@ -87,6 +93,8 @@ class GNODE:
     deriv_layernorm: bool = False
     encode_r: bool = True
     compute_dtype: str = "f32"  # 'bf16': ODE state + field matmuls in bfloat16
+    solver_budget: int = 0  # dopri5_adaptive's global attempt budget
+    # (0: the solver's default of 2 * (T_grid - 1) attempts)
 
     @property
     def ts(self) -> np.ndarray:
@@ -106,9 +114,6 @@ class GNODE:
         return params
 
     def _trajectory(self, params, adj, s0, i0, r0, beta, gamma):
-        if self.method == "dopri5_adaptive":
-            raise NotImplementedError(
-                "method='dopri5_adaptive' is not ported yet (ROADMAP.md Queue 1: odeint/dopri.py)")
         enc = lambda c: torch.relu(linear(params["enc"], c[..., None]))
         s = enc(s0)
         i = enc(i0)
@@ -120,8 +125,14 @@ class GNODE:
             fparams = _map_params(cast, params)
         func = partial(gnode_ode_func, activation=self.activation,
                        deriv_layernorm=self.deriv_layernorm)
-        return odeint_grid(func, (s, i, r), self.ts, (fparams, beta, gamma, adj),
-                           method=self.method, adjoint=self.adjoint)
+        args = (fparams, beta, gamma, adj)
+        if self.method == "dopri5_adaptive":
+            return odeint_grid_adaptive(func, (s, i, r), self.ts, args,
+                                        total_steps=self.solver_budget or None)
+        # backsolve differentiates the field params and the rates, not the
+        # adjacency
+        return odeint_grid(func, (s, i, r), self.ts, args, method=self.method,
+                           adjoint=self.adjoint, diff_mask=(True, True, True, False))
 
     def apply(self, params, adj, s0, i0, r0, beta, gamma, *, rng=None, train=False):
         """Full-grid forward.

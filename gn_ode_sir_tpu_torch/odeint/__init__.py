@@ -1,5 +1,9 @@
 """ODE solver layer (port of ``gn_ode_sir_tpu.odeint``): fixed-grid
-euler/midpoint/rk4/dopri5 and the integer-time resampling."""
+euler/midpoint/rk4/dopri5 with the direct, checkpoint and backsolve
+adjoints, budgeted adaptive dopri5, and the integer-time resampling."""
+
+from gn_ode_sir_tpu_torch.odeint.adjoint import odeint_grid_backsolve
+from gn_ode_sir_tpu_torch.odeint.dopri import odeint_grid_adaptive
 
 from gn_ode_sir_tpu_torch.odeint.resample import (
     integer_time_indices,
@@ -10,6 +14,8 @@ from gn_ode_sir_tpu_torch.odeint.solvers import METHODS, odeint_grid, step_fn
 __all__ = [
     "METHODS",
     "odeint_grid",
+    "odeint_grid_adaptive",
+    "odeint_grid_backsolve",
     "step_fn",
     "integer_time_indices",
     "resample_integer_times",

@@ -89,7 +89,7 @@ def step_fn(method: str):
 
 
 def odeint_grid(func, y0, ts, args=None, *, method: str = "euler",
-                adjoint: str = "checkpoint"):
+                adjoint: str = "checkpoint", diff_mask=None):
     """Integrate ``dy/dt = func(t, y, args)`` over the uniform grid ``ts``.
 
     Args:
@@ -98,18 +98,21 @@ def odeint_grid(func, y0, ts, args=None, *, method: str = "euler",
       ts: [T] strictly increasing, uniformly spaced float32 times.
       method: 'euler' | 'midpoint' | 'rk4' | 'dopri5'.
       adjoint: 'checkpoint' (recompute each step in the backward pass, when
-        gradients are enabled) | 'direct' (plain autograd). 'backsolve' is
-        not ported yet.
+        gradients are enabled) | 'direct' (plain autograd) | 'backsolve'
+        (the continuous adjoint of :mod:`~gn_ode_sir_tpu_torch.odeint.adjoint`).
+      diff_mask: backsolve only: a bool per top-level entry of ``args``,
+        which of them to differentiate (default: all).
 
     Returns the dense trajectory: a tuple of tensors with a new leading time
     axis [T] whose first slice equals ``y0``.
     """
-    if adjoint == "backsolve":
-        raise NotImplementedError(
-            "adjoint='backsolve' is not ported yet (ROADMAP.md Queue 1: odeint/adjoint.py)")
     if adjoint not in ADJOINTS:
         raise ValueError(f"unknown adjoint {adjoint!r}")
     step = step_fn(method)
+    if adjoint == "backsolve":
+        from gn_ode_sir_tpu_torch.odeint.adjoint import odeint_grid_backsolve
+
+        return odeint_grid_backsolve(func, y0, ts, args, method=method, diff_mask=diff_mask)
     ts = np.asarray(ts, np.float32)
     dt = ts[1] - ts[0]
     y = tuple(y0)

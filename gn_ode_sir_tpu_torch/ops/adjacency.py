@@ -59,7 +59,8 @@ class CooAdj:
         if self.w is not None:
             msgs = msgs * self.w.reshape(-1, 1)
         out = torch.zeros((b * n, h), dtype=x.dtype, device=x.device)
-        return out.index_add_(0, (self.dst + offset).reshape(-1), msgs).reshape(b, n, h)
+        # out of place: runs under torch.func.vmap (ensemble evaluation)
+        return out.index_add(0, (self.dst + offset).reshape(-1), msgs).reshape(b, n, h)
 
 
 def adjacency_from_graph(graph, *, kind: str = "auto", device):

@@ -8,11 +8,13 @@ import torch
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                 dim: int = 0) -> torch.Tensor:
     """Sum slices of ``data`` along ``dim`` into ``num_segments`` buckets keyed
-    by ``segment_ids`` (one ``index_add_``; ids need not be sorted)."""
+    by ``segment_ids`` (one ``index_add``; ids need not be sorted). Out of
+    place, so that it runs under ``torch.func.vmap`` (the ensemble's
+    evaluation folds its members into one call)."""
     shape = list(data.shape)
     shape[dim] = num_segments
     out = torch.zeros(shape, dtype=data.dtype, device=data.device)
-    return out.index_add_(dim, segment_ids, data)
+    return out.index_add(dim, segment_ids, data)
 
 
 def segment_prod(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,

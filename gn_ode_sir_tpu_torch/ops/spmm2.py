@@ -238,17 +238,37 @@ spmm2.backward_launches = 0  # those of them made by backward passes
 
 
 class _Spmm2Function(torch.autograd.Function):
-    """``spmm2`` with K1-bwd as its gradient; none flows to the plans."""
+    """``spmm2`` with K1-bwd as its gradient; none flows to the plans.
+
+    Under ``torch.func.vmap`` over a member axis (the ensemble's K members
+    sharing one adjacency, ``train/ensemble.py``) the ``vmap`` rule folds the
+    members into the scenario axis: x [K, B, n, h] becomes one launch at
+    [K·B, n, h], and its gradient one K1-bwd launch at the same shape. Each
+    scenario's sum keeps its order, so the fold gives the bits of K
+    separate launches."""
 
     @staticmethod
-    def forward(ctx, x, plan, plan_t, precision):
-        ctx.plan_t, ctx.precision, ctx.x_dtype = plan_t, precision, x.dtype
+    def forward(x, plan, plan_t, precision):
         return spmm2(plan, x, precision)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, _, plan_t, precision = inputs
+        ctx.plan_t, ctx.precision, ctx.x_dtype = plan_t, precision, x.dtype
 
     @staticmethod
     def backward(ctx, g):
         dx = _apply(ctx.plan_t, g.contiguous(), ctx.precision, backward=True)
         return dx.to(ctx.x_dtype), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, plan, plan_t, precision):
+        if in_dims[0] is None:
+            return _Spmm2Function.apply(x, plan, plan_t, precision), None
+        x = x.movedim(in_dims[0], 0)
+        folded = x.reshape(-1, *x.shape[-2:]).contiguous()
+        out = _Spmm2Function.apply(folded, plan, plan_t, precision)
+        return out.reshape(x.shape), 0
 
 
 @dataclasses.dataclass(frozen=True)

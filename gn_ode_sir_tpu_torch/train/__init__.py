@@ -1,11 +1,14 @@
 """Training layer (port of ``gn_ode_sir_tpu.train``): loss, trial datasets,
-the training loop, multi-graph assembly and the params checkpoint. Ensemble
-and node-split training are not ported yet (ROADMAP.md Queue 1)."""
+the training loop with periodic checkpoints and resume, multi-graph
+assembly, the K-repeat ensemble, the legacy node-split protocol, and the
+params and training-state checkpoints."""
 
 from gn_ode_sir_tpu_torch.train.checkpoint import (
     params_from_numpy,
     params_to_numpy,
+    restore_checkpoint,
     restore_params,
+    save_checkpoint,
     save_params,
 )
 from gn_ode_sir_tpu_torch.train.data import (
@@ -22,6 +25,13 @@ from gn_ode_sir_tpu_torch.train.loop import (
     make_eval_per_trial_fn,
     make_train_epoch_fn,
 )
+from gn_ode_sir_tpu_torch.train.ensemble import (
+    EnsembleFitResult,
+    fit_ensemble,
+    init_ensemble,
+    member_routes,
+    trajectory_bytes,
+)
 from gn_ode_sir_tpu_torch.train.loss import l1_sir_loss, masked_l1
 from gn_ode_sir_tpu_torch.train.multigraph import (
     MultigraphConnectivity,
@@ -31,6 +41,11 @@ from gn_ode_sir_tpu_torch.train.multigraph import (
     multigraph_pallas2_fns,
     multigraph_split,
     resolve_mg_kind,
+)
+from gn_ode_sir_tpu_torch.train.node_split import (
+    NodeSplitResult,
+    fit_node_split,
+    node_split_indices,
 )
 
 __all__ = [
@@ -48,8 +63,18 @@ __all__ = [
     "make_train_epoch_fn",
     "params_from_numpy",
     "params_to_numpy",
+    "restore_checkpoint",
     "restore_params",
+    "save_checkpoint",
     "save_params",
+    "EnsembleFitResult",
+    "fit_ensemble",
+    "init_ensemble",
+    "member_routes",
+    "trajectory_bytes",
+    "NodeSplitResult",
+    "fit_node_split",
+    "node_split_indices",
     "MultigraphConnectivity",
     "assemble_multigraph_trials",
     "multigraph_adj_fns",

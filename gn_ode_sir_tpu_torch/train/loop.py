@@ -17,15 +17,17 @@ without asking the device. The JAX package's ``adj_aux`` argument, which
 keeps connectivity arrays out of a compiled program, has no counterpart:
 the providers close over their device tensors.
 
-Not ported yet, each raising ``NotImplementedError`` when asked for:
-periodic checkpoints and resume (``checkpoint_dir``, ``checkpoint_every``,
-``checkpoint_auto_s``, ``resume``: ROADMAP.md Queue 1, train/checkpoint.py +
-resume in fit) and ``profile_dir`` (utils/profiling.py).
+Periodic checkpoints of the whole training state (``checkpoint_dir``,
+``checkpoint_every``, the auto cadence of ``checkpoint_auto_s``) and
+exact-trace resume (``resume``) follow the JAX package. Not ported yet:
+``profile_dir`` (ROADMAP.md Queue 1 item 16, utils/profiling.py), which
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable
 
@@ -33,7 +35,8 @@ import numpy as np
 import torch
 
 from gn_ode_sir_tpu_torch.sim.mc_sir import fold_seed
-from gn_ode_sir_tpu_torch.train.checkpoint import tree_leaves, tree_map
+from gn_ode_sir_tpu_torch.train.checkpoint import (checkpoint_path, restore_checkpoint,
+                                                   save_checkpoint, tree_leaves, tree_map)
 from gn_ode_sir_tpu_torch.train.data import TrialData, epoch_batches, epoch_batches_grouped
 from gn_ode_sir_tpu_torch.train.loss import l1_sir_loss
 
@@ -118,7 +121,9 @@ def make_train_epoch_fn(model, optimizer, adj_fn, node_mask_fn=None, n_view=None
 
 
 def make_eval_fn(model, adj_fn, node_mask_fn=None, n_view=None) -> Callable:
-    """Batched evaluation returning the item-weighted mean L1 (0-d tensor)."""
+    """Batched evaluation returning the item-weighted mean L1 (0-d tensor).
+    Runs under ``torch.func.vmap`` over stacked params (no in-place
+    accumulation), as the ensemble's evaluation calls it."""
 
     def evaluate(params, d, batch_idx, batch_w):
         device = d["beta"].device
@@ -128,8 +133,8 @@ def make_eval_fn(model, adj_fn, node_mask_fn=None, n_view=None) -> Callable:
             for bidx, bw, gi in _rows(d, batch_idx, batch_w):
                 loss, items = _batch_loss(model, params, adj_fn, node_mask_fn, d, bidx, bw, gi,
                                           n_view=n_view)
-                loss_sum += loss * items
-                item_sum += items
+                loss_sum = loss_sum + loss * items
+                item_sum = item_sum + items
         return loss_sum / item_sum
 
     return evaluate
@@ -165,6 +170,46 @@ class FitResult:
     test_loss_all: Any = None  # per-trial test losses at the best-val epoch
     best_params: Any = None  # params at the best-val epoch (the weights the
     # reported test_loss was scored with — the serving snapshot)
+
+
+def index_batches(idx, graph_idx, size: int, rng, by_graph: bool):
+    """Minibatch rows of the trials ``idx`` (absolute indices) and their
+    weights: graph-homogeneous with ``by_graph``, shuffled with ``rng``."""
+    if by_graph:
+        return epoch_batches_grouped(idx, graph_idx, size, rng)
+    bi, bw = epoch_batches(len(idx), size, rng)
+    return np.asarray(idx, np.int32)[bi], bw
+
+
+def auto_cadence(checkpoint_dir, checkpoint_every, checkpoint_auto_s, epoch, start_epoch,
+                 epochs, epoch_times, verbose) -> int:
+    """``checkpoint_every`` after ``epoch``: with ``checkpoint_auto_s`` set and
+    no explicit interval, once three epochs have run, the projection of the
+    run's time decides whether to save every ~300 s from now on. The steady
+    epoch time is the least of the three (the first pays the kernel build and
+    the allocator's warm-up)."""
+    if not (checkpoint_dir and checkpoint_auto_s and not checkpoint_every
+            and epoch == start_epoch + 2):
+        return checkpoint_every
+    steady_s = float(np.min(epoch_times[-3:]))
+    projected = float(np.sum(epoch_times)) + steady_s * (epochs - epoch - 1)
+    if projected <= checkpoint_auto_s:
+        return checkpoint_every
+    every = max(1, int(300.0 / steady_s))
+    if verbose:
+        print(f"auto-checkpoint: projected {projected / 60:.1f} min run -> saving every "
+              f"{every} epochs")
+    return every
+
+
+def final_save_due(checkpoint_dir, epochs, start_epoch, checkpoint_every, ckpt_on_disk,
+                   checkpoint_auto_s) -> bool:
+    """The end-of-run save: always for an explicitly requested directory,
+    but not when only the auto cadence armed it and found the run short —
+    unless a state is already on disk (restored or written mid-run), which
+    must not stay behind as the directory's truth."""
+    return bool(checkpoint_dir and epochs > start_epoch
+                and (checkpoint_every or ckpt_on_disk or not checkpoint_auto_s))
 
 
 def fit(
@@ -213,14 +258,18 @@ def fit(
     side at the train graphs' width. ``batch_by_graph=True`` builds
     graph-homogeneous minibatches (``epoch_batches_grouped``), required by
     an ``adj_fn`` that applies one graph's plan to the whole minibatch.
+
+    Checkpoints: with ``checkpoint_dir``, the whole training state is saved
+    every ``checkpoint_every`` epochs, or, with ``checkpoint_auto_s``, every
+    ~300 s once the first three epochs project the run past that many
+    seconds; ``resume=True`` restores ``<checkpoint_dir>/state.pt`` when it
+    exists and fast-forwards the shuffle so that the resumed run repeats the
+    uninterrupted run's trace exactly. The end of the run saves too, unless
+    the auto cadence alone armed the directory and found the run short.
     """
-    if checkpoint_dir or checkpoint_every or checkpoint_auto_s or resume:
-        raise NotImplementedError(
-            "periodic checkpoints and resume are not ported yet (ROADMAP.md "
-            "Queue 1: train/checkpoint.py + resume in fit)")
     if profile_dir is not None:
         raise NotImplementedError(
-            "profile_dir is not ported yet (ROADMAP.md Queue 1: utils/profiling.py)")
+            "profile_dir is not ported yet (ROADMAP.md Queue 1 item 16: utils/profiling.py)")
 
     # an adj_fn that reads ONE plan per minibatch declares it: run with
     # mixed-graph batches it would apply the wrong connectivity to most trials
@@ -277,12 +326,8 @@ def fit(
     ebs = eval_batch_size or max(batch_size, 8)
     rng = np.random.default_rng(seed)
 
-    def batches(idx, size, rng):
-        if batch_by_graph:
-            return epoch_batches_grouped(idx, data.graph_idx, size, rng)
-        bi, bw = epoch_batches(len(idx), size, rng)
-        return np.asarray(idx, np.int32)[bi], bw
-
+    batches = lambda idx, size, rng: index_batches(idx, data.graph_idx, size, rng,
+                                                   batch_by_graph)
     val_bi, val_bw = batches(val_idx, ebs, None)
     test_bi, test_bw = batches(test_idx, ebs, None)
 
@@ -293,8 +338,45 @@ def fit(
     test_loss_all = None
     test_time = 0.0
     history, epoch_times = [], []
+    start_epoch = 0
 
-    for epoch in range(epochs):
+    ckpt_on_disk = False  # restored from or written to by this run
+    if checkpoint_dir and resume and os.path.exists(checkpoint_path(checkpoint_dir)):
+        ckpt_on_disk = True
+        st = restore_checkpoint(checkpoint_dir)
+        with torch.no_grad():
+            for leaf, saved in zip(_leaves(params), _leaves(st["params"])):
+                leaf.copy_(saved)
+        opt.load_state_dict(st["opt_state"])
+        # keys an older state lacks default as the JAX layout ladder's rungs
+        best_params = (tree_map(lambda t: t.to(device), st["best_params"])
+                       if "best_params" in st else snapshot())
+        if track_test_per_trial and "test_loss_all" in st:
+            test_loss_all = st["test_loss_all"].numpy()
+        start_epoch = int(st["epoch"]) + 1
+        best_val = float(st["best_val"])
+        best_epoch = int(st["best_epoch"])
+        test_loss = float(st["test_loss"])
+        test_time = float(st.get("test_time", 0.0))
+        # epoch k of the resumed run draws the uninterrupted run's permutation
+        # (dropout's stream is indexed by the epoch already)
+        for _ in range(start_epoch):
+            batches(train_idx, batch_size, rng)
+        if verbose:
+            print(f"resumed from {checkpoint_dir} at epoch {start_epoch}")
+
+    def save(epoch):
+        nonlocal ckpt_on_disk
+        ckpt_on_disk = True
+        state = {"params": params, "opt_state": opt.state_dict(), "epoch": epoch,
+                 "best_val": best_val, "best_epoch": best_epoch, "test_loss": test_loss,
+                 "best_params": best_params, "test_time": float(test_time)}
+        if track_test_per_trial:
+            state["test_loss_all"] = (np.full(len(test_idx), np.nan) if test_loss_all is None
+                                      else np.asarray(test_loss_all))
+        save_checkpoint(checkpoint_dir, state)
+
+    for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         bi, bw = batches(train_idx, batch_size, rng)
         train_loss = train_epoch(params, d, bi, bw, fold_seed(seed + 1, epoch))
@@ -319,7 +401,14 @@ def fit(
         if verbose and (epoch % log_every == 0 or epoch == epochs - 1):
             print(f"Epoch: {epoch:03d}, Train Loss: {train_loss:.10f}, "
                   f"Val Loss: {val_loss:.10f} ({epoch_times[-1]:.3f}s)")
+        checkpoint_every = auto_cadence(checkpoint_dir, checkpoint_every, checkpoint_auto_s,
+                                        epoch, start_epoch, epochs, epoch_times, verbose)
+        if checkpoint_dir and checkpoint_every and (epoch + 1) % checkpoint_every == 0:
+            save(epoch)
 
+    if final_save_due(checkpoint_dir, epochs, start_epoch, checkpoint_every, ckpt_on_disk,
+                      checkpoint_auto_s):
+        save(epochs - 1)
     return FitResult(
         params=tree_map(lambda t: t.detach(), params),
         opt_state=opt.state_dict(),

@@ -322,3 +322,64 @@ def test_multigraph_training_step_on_card_matches_cpu(cuda_device, family):
     for path, g in grads_cpu.items():
         scale = max(float(g.abs().max()), 1e-3 * top)
         assert float((grads_gpu[path] - g).abs().max()) <= 1e-4 * scale, path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("member_shape", [(1, 300, 64), (2, 300, 8), (300, 64)])
+def test_k1_folded_members_equal_separate_launches(cuda_device, member_shape):
+    """``torch.func.vmap`` over K = 4 members folds them into one K1 launch
+    at [K·B, n, h] and one K1-bwd launch at the same shape; the outputs and
+    gradients equal K separate launches bit for bit (each scenario's sum
+    keeps its order)."""
+    k = 4
+    adj = Spmm2Adj.from_graph(_graph(), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((k, *member_shape), generator=gen, device=cuda_device, requires_grad=True)
+    g = torch.randn((k, *member_shape), generator=gen, device=cuda_device)
+    before = (spmm2.launches, spmm2.backward_launches)
+    y = torch.func.vmap(adj.matvec)(x)
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert (spmm2.launches - before[0], spmm2.backward_launches - before[1]) == (2, 1)
+    for j in range(k):
+        xj = x[j].detach().clone().requires_grad_(True)
+        yj = adj.matvec(xj)
+        (dxj,) = torch.autograd.grad(yj, xj, g[j].contiguous())
+        assert torch.equal(y[j], yj) and torch.equal(dx[j], dxj)
+
+
+@pytest.mark.cuda
+def test_backsolve_step_on_card_matches_direct(cuda_device):
+    """One training step of C7's field with the backsolve adjoint on the
+    card: the loss equals direct's (1e-6 relative: the same forward) and
+    every gradient leaf is within 2e-3 of its scale, with rk4 at deltaT
+    0.125, where reversing the integration is accurate; one K1 and one
+    K1-bwd launch per evaluation of the reverse pass."""
+    from gn_ode_sir_tpu_torch.train.checkpoint import tree_leaves, tree_map
+    from gn_ode_sir_tpu_torch.train.loss import l1_sir_loss
+
+    g = _graph()
+    adj = Spmm2Adj.from_graph(g, device=cuda_device)
+    rng = np.random.default_rng(3)
+    i0 = np.zeros((1, g.n_nodes), np.float32)
+    i0[0, [3, 9]] = 1.0
+    on = lambda a: torch.as_tensor(a, device=cuda_device)
+    xs = [on(a) for a in (1 - i0, i0, np.zeros_like(i0), np.float32([0.3]), np.float32([0.1]))]
+    labels = on(rng.dirichlet([2.0, 1.0, 1.0], size=(1, 4, g.n_nodes)).astype(np.float32))
+    cfg = dict(hidden=16, method="rk4", max_time=4, delta_t=0.125)
+    start = GNODE(**cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    out = {}
+    for adjoint in ("direct", "backsolve"):
+        params = tree_map(lambda t: t.to(cuda_device).requires_grad_(True), start)
+        before = (spmm2.launches, spmm2.backward_launches)
+        loss = l1_sir_loss(GNODE(**cfg, adjoint=adjoint).predict(params, adj, *xs), labels)
+        loss.backward()
+        out[adjoint] = (loss.item(), {p: leaf.grad for p, leaf in tree_leaves(params)},
+                        (spmm2.launches - before[0], spmm2.backward_launches - before[1]))
+    evals = 4 * (32 - 1)
+    assert out["direct"][2] == (2 * evals, evals) and out["backsolve"][2] == (3 * evals, evals)
+    assert out["backsolve"][0] == pytest.approx(out["direct"][0], rel=1e-6)
+    for path, want in out["direct"][1].items():
+        if path == "dec2/b":  # shifts all three logits: its gradient is rounding noise
+            continue
+        got = out["backsolve"][1][path]
+        assert float((got - want).abs().max()) <= 2e-3 * float(want.abs().max()), path

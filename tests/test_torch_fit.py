@@ -155,10 +155,19 @@ def test_fit_metrics_logger_and_unported_arguments(random_graph, tmp_path):
     assert set(rec.rows[0]) == {"epoch", "train_loss", "val_loss", "epoch_s"}
     assert res.history[1][1] == rec.rows[1]["train_loss"]
     assert "state" in res.opt_state
-    for kw, item in ((dict(checkpoint_dir=str(tmp_path)), "resume in fit"),
-                     (dict(resume=True), "resume in fit"),
-                     (dict(checkpoint_every=2), "resume in fit"),
-                     (dict(checkpoint_auto_s=600.0), "resume in fit"),
-                     (dict(profile_dir=str(tmp_path)), "profiling")):
-        with pytest.raises(NotImplementedError, match=item):
-            fit(model, opt, params, data, *SPLITS, lambda gi: adj, epochs=1, **kw)
+    # the four checkpoint keywords save and resume (the exact trace is held in
+    # test_torch_resume.py); profile_dir is still refused, naming item 16
+    state = tmp_path / "state.pt"
+    fit(model, opt, params, data, *SPLITS, lambda gi: adj, epochs=1, verbose=False,
+        checkpoint_dir=str(tmp_path), checkpoint_auto_s=600.0)  # auto alone: a short run
+    assert not state.exists()  # does not pay for a save
+    fit(model, opt, params, data, *SPLITS, lambda gi: adj, epochs=1, verbose=False,
+        checkpoint_dir=str(tmp_path))
+    assert state.exists()
+    more = fit(model, opt, params, data, *SPLITS, lambda gi: adj, epochs=3, verbose=False,
+               checkpoint_dir=str(tmp_path), checkpoint_every=2, resume=True)
+    assert [h[0] for h in more.history] == [1, 2]
+    assert torch.load(state, weights_only=True)["epoch"] == 2
+    with pytest.raises(NotImplementedError, match="item 16"):
+        fit(model, opt, params, data, *SPLITS, lambda gi: adj, epochs=1,
+            profile_dir=str(tmp_path))

@@ -214,16 +214,24 @@ def test_checkpoint_adjoint_gradients_equal_direct():
 
 
 def test_unported_solver_options_raise():
+    """The backsolve adjoint and adaptive dopri5 run now (held against JAX in
+    test_torch_adjoint.py and test_torch_dopri.py); unknown names are still
+    refused."""
     y0 = (torch.ones(2),)
     ts = np.arange(0.0, 1.0, 0.5, dtype=np.float32)
     field = lambda t, y, args: (-y[0],)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        odeint_grid(field, y0, ts, adjoint="backsolve")
+    (traj,) = odeint_grid(field, y0, ts, adjoint="backsolve")
+    assert traj.shape == (2, 2) and torch.equal(traj[0], y0[0])
     with pytest.raises(ValueError, match="adjoint"):
         odeint_grid(field, y0, ts, adjoint="magic")
     with pytest.raises(ValueError, match="method"):
         odeint_grid(field, y0, ts, method="heun")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GNODE(hidden=4, method="dopri5_adaptive").predict(
-            GNODE(hidden=4).init(torch.Generator(), device="cpu"), None, *(torch.zeros(1, 2),) * 3,
-            torch.zeros(1), torch.zeros(1))
+    probs = GNODE(hidden=4, max_time=2, method="dopri5_adaptive").predict(
+        GNODE(hidden=4).init(torch.Generator(), device="cpu"),
+        adjacency_from_graph(Graph(n_nodes=2, src=[0, 1], dst=[1, 0]), device="cpu"),
+        torch.ones(1, 2), torch.zeros(1, 2), torch.zeros(1, 2), torch.ones(1), torch.ones(1))
+    assert probs.shape == (2, 1, 2, 3) and torch.isfinite(probs).all()
+    with pytest.raises(ValueError, match="method"):
+        GNODE(hidden=4, method="heun").predict(
+            GNODE(hidden=4).init(torch.Generator(), device="cpu"), None,
+            *(torch.zeros(1, 2),) * 3, torch.zeros(1), torch.zeros(1))

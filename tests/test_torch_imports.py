@@ -55,7 +55,10 @@ def test_every_module_imports(probe):
                 "gn_ode_sir_tpu_torch.graphs.batch", "gn_ode_sir_tpu_torch.sim.classical",
                 "gn_ode_sir_tpu_torch.models.dmp", "gn_ode_sir_tpu_torch.models.gcn",
                 "gn_ode_sir_tpu_torch.models.gin", "gn_ode_sir_tpu_torch.models.adapter",
-                "gn_ode_sir_tpu_torch.train.multigraph"}
+                "gn_ode_sir_tpu_torch.train.multigraph",
+                "gn_ode_sir_tpu_torch.odeint.adjoint", "gn_ode_sir_tpu_torch.odeint.dopri",
+                "gn_ode_sir_tpu_torch.train.ensemble", "gn_ode_sir_tpu_torch.train.node_split",
+                "gn_ode_sir_tpu_torch.cli.monitorer"}
     assert expected <= set(probe["modules"])
 
 
@@ -99,6 +102,10 @@ def test_new_tensor_placing_calls_need_an_explicit_device():
         lambda **kw: adjacency_from_batch(batch, np.array([0, 1]), **kw),
         lambda **kw: Spmm2Adj.from_edges(ga.src, ga.dst, 8, **kw),
     ]
+    from gn_ode_sir_tpu_torch.models import GNODE
+    from gn_ode_sir_tpu_torch.train import init_ensemble
+
+    calls.append(lambda **kw: init_ensemble(GNODE(hidden=4), [0, 1], **kw))
     for call in calls:
         with pytest.raises(TypeError, match="device"):
             call()

@@ -3,7 +3,8 @@ end on the CPU with ``--dataset none`` against the JAX worker: the CSV header
 and row layout, the ``initial-*.pkl`` contents, the two out-of-dist CSVs, the
 saved checkpoint served through ``cli.infer``, the baselines (``--model
 dmp|rk|GCN|GIN``, ``--rk_baseline``), ``+``-joined multi-graph datasets, and
-the flags that are not ported yet. Labels come from different random streams
+the flags of the experiment matrix (``--ensemble``, ``--node_split``,
+checkpoints, resume and the crash drill). Labels come from different random streams
 in the two packages and the models from different initial params, so trained
 losses are compared for layout and type, not value (``test_torch_fit.py``
 and ``test_torch_multigraph.py`` hold the training itself against JAX from
@@ -129,6 +130,17 @@ def test_worker_takes_a_graph_and_a_config_file(tmp_path):
     assert os.path.exists(tmp_path / "ring-S-2-3-b0.2-g0.1.pkl")
 
 
+def _two_graphs():
+    import networkx as nx
+
+    from gn_ode_sir_tpu_torch.graphs.graph import graph_from_networkx
+
+    ga = graph_from_networkx(nx.karate_club_graph(), name="karate")
+    gb = graph_from_networkx(nx.connected_watts_strogatz_graph(40, 4, 0.2, seed=1),
+                             name="dolphins")
+    return [ga, gb]
+
+
 @pytest.mark.parametrize("extra,item", [
     (["--ensemble", "2"], "train/ensemble.py"),
     (["--node_split"], "train/node_split.py"),
@@ -141,8 +153,46 @@ def test_worker_takes_a_graph_and_a_config_file(tmp_path):
     (["--model", "GCN", "--node_split"], "train/node_split.py"),
 ])
 def test_unported_flags_raise_naming_their_item(tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        worker.main(_argv(tmp_path, "--device", "cpu", *extra))
+    """The flags that were refused before the matrix slice (``item``: what
+    ports each) now run on a tiny graph and write their CSV row(s): an
+    ensemble one per member (trials 3 and 4), the crash drill exits with 17
+    and its --resume completes, a requested checkpoint lands in the run's
+    directory."""
+    rows = 2 if item == "train/ensemble.py" else 1
+    multi = "karate+dolphins" in extra
+    argv = _argv(tmp_path, "--device", "cpu", *extra)
+    if multi:
+        argv += ["--instances_per_graph", "4", "4"]
+    graph = _two_graphs() if multi else None
+    if "--die_at_epoch" in extra:
+        argv += ["--checkpoint_every", "1"]
+        with pytest.raises(SystemExit) as exc:
+            worker.main(argv, graph=graph)
+        assert exc.value.code == 17
+        assert not os.path.exists(tmp_path / "Metrics-trials-gnp50")
+        argv += ["--resume"]
+    assert worker.main(argv, graph=graph) == 0
+    name = "karate+dolphins" if multi else "gnp50"
+    table = _read_csv(tmp_path / f"Metrics-trials-{name}")
+    assert [r[0] for r in table[1:]] == [str(3 + j) for j in range(rows)]
+    assert all(0.0 < float(r[14]) < 1.0 for r in table[1:])
+    ens = 2 if "--ensemble" in extra else 0
+    ckpt = worker.checkpoint_dir_for(str(tmp_path), 3, "GCN" if "GCN" in extra else "ode_nn",
+                                     name, ensemble=ens)
+    saved = any(f in extra for f in ("--checkpoint_every", "--die_at_epoch"))
+    assert os.path.exists(os.path.join(ckpt, "state.pt")) == saved
+
+
+@pytest.mark.parametrize("extra", [["--node_split"], ["--model", "dmp"], ["--model", "rk"]])
+def test_ensemble_refusals_equal_the_jax_worker(tmp_path, no_jax_side_effects, extra):
+    """--ensemble with the node split or an untrained baseline is refused
+    with the JAX worker's message, before any label is simulated."""
+    with pytest.raises(SystemExit) as want:
+        jax_worker.main(_argv(tmp_path / "jax", "--ensemble", "2", *extra))
+    with pytest.raises(SystemExit) as got:
+        worker.main(_argv(tmp_path / "torch", "--device", "cpu", "--ensemble", "2", *extra))
+    assert str(got.value) == str(want.value) and "--ensemble" in str(got.value)
+    assert not os.path.exists(tmp_path / "torch")
 
 
 def _copy_pickles(src_dir, dst_dir):
