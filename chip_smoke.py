@@ -47,7 +47,17 @@ version. Phases, each printed as one JSON line:
    epoch each, a step against the CPU, the checkpoint served), ``--model
    dmp`` and ``--model rk`` through ``cli.worker.main``, DMP and RK on the
    card against the CPU;
-9. kernels — one line listing every ported kernel;
+9. matrix — the experiment matrix (ensembles, crash and resume, backsolve,
+   adaptive dopri5, the node split);
+10. parallel — ``parallel/`` at world size 1 over NCCL: the data-parallel
+   and the data x edge training steps against the single-device step, the
+   sharded simulator (K2), ``cli.infer --spmd`` and ``fit_ensemble(mesh=)``;
+   utils — ``trace()``, ``fit(profile_dir=)``, ``device_memory_stats`` and
+   the roofline utilization of a training step and of K1; with the kernel
+   phase, K1 and K1-bwd on the two halves of the edge list (an edge shard's
+   plans), ``ell`` (the bucketed-ELL adjacency against K1) and ``native``
+   (the C++ graph core against its numpy path, host times);
+11. kernels — one line listing every ported kernel;
 and last ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero; without a CUDA device it exits non-zero before doing anything.
 """
@@ -57,10 +67,12 @@ from __future__ import annotations
 import contextlib
 import csv
 import dataclasses
+import glob
 import io
 import json
 import os
 import pickle
+import platform
 import re
 import subprocess
 import sys
@@ -130,6 +142,8 @@ CRASH_EPOCHS = 3
 BACKSOLVE_GRAD_RTOL = 2e-3  # the JAX package's own, tests/test_odeint.py
 DOPRI_BUDGET = 12  # attempts over the horizon (the default, 2 * 39, holds 78 states x 4)
 DOPRI_ATOL = 1e-4  # card vs CPU probabilities
+SPMD_LOSS_ATOL = 1e-6  # an SPMD step at world size 1 against the single-device step
+SPMD_LEAF_RTOL = 1e-5  # its leaf update (SGD at lr 1: the gradient), max-norm
 
 
 def emit(obj) -> None:
@@ -1682,6 +1696,427 @@ def phase_matrix_single(graph, trials, small, root, save_dir) -> dict:
     return parts
 
 
+def edge_halves(graph) -> list:
+    """The two blocks of the dst-sorted edge list that the edge axis of a
+    2-process mesh holds (``parallel.mesh.local_block``); the hub rows that
+    straddle the cut are split between them."""
+    cut = graph.n_edges // 2
+    return [Graph(n_nodes=graph.n_nodes, src=graph.src[sl], dst=graph.dst[sl],
+                  name=f"{graph.name}_edges{k}")
+            for k, sl in enumerate((slice(0, cut), slice(cut, None)))]
+
+
+def phase_kernel_shards(graph) -> tuple[list, list]:
+    """K1 and K1-bwd on each half of the enron-size edge list, the plans an
+    edge-sharded SpMM launches on: each half against its plain version, the
+    many rows without an edge in a half exact zeros, and the two halves'
+    outputs summed against the full plan's (forward and gradient) within
+    ``KERNEL_REL_TOL * (1 + sum|w x|)``."""
+    dev = torch.device("cuda")
+    halves = edge_halves(graph)
+    fwd = [check_spmm2_case(f"enron_edge_shard{k}_b8_h64", h, DISPATCH_BATCH, 64, "f32",
+                            torch.float32, timed=True) for k, h in enumerate(halves)]
+    bwd = [check_spmm2_bwd_case(f"bwd_enron_edge_shard{k}_b1", h, 1, "f32", timed=True)
+           for k, h in enumerate(halves)]
+    rng = np.random.default_rng([SEED, 6])
+    x = torch.as_tensor(rng.standard_normal((DISPATCH_BATCH, graph.n_nodes, 64), np.float32),
+                        device=dev)
+    full = Spmm2Adj.from_graph(graph, device=dev)
+    adjs = [Spmm2Adj.from_graph(h, device=dev) for h in halves]
+    row = {"phase": "kernel", "kernel": "spmm2", "case": "enron_edge_shards_summed",
+           "batch": DISPATCH_BATCH, "h": 64, "edges": [h.n_edges for h in halves],
+           "tol": f"{KERNEL_REL_TOL} * (1 + sum|w x|)"}
+    for which, plan_of, rows_of in (("forward", lambda a: a.plan, lambda h: h.dst),
+                                    ("gradient", lambda a: a.plan_t, lambda h: h.src)):
+        parts = []
+        for h, adj in zip(halves, adjs):
+            y = spmm2(plan_of(adj), x)
+            empty = np.setdiff1d(np.arange(graph.n_nodes), rows_of(h))
+            if not empty.size or y[:, torch.as_tensor(empty, device=dev)].any():
+                raise AssertionError(f"{which}: a shard's {empty.size} edgeless rows are not zeros")
+            parts.append(y)
+            row.setdefault(f"{which}_edgeless_rows", []).append(int(empty.size))
+        plan = plan_of(full)
+        scale = spmm2_plain(dataclasses.replace(plan, w=plan.w.abs()), x.abs())
+        err = (parts[0] + parts[1] - spmm2(plan, x)).abs()
+        if (err > KERNEL_REL_TOL * (1.0 + scale)).any():
+            raise AssertionError(f"{which}: the two shards summed differ from the full plan "
+                                 f"(max abs err {float(err.max())})")
+        row[f"{which}_max_abs_err"] = float(err.max())
+    emit({**row, "ok": True})
+    return fwd, bwd
+
+
+def phase_ell(graph) -> dict:
+    """The bucketed-ELL adjacency (``ops/ell.py``, plain torch gathers) at
+    enron size, [8, n, 64], against K1 within ``KERNEL_REL_TOL * (1 + sum|x|)``,
+    and the two times side by side."""
+    from gn_ode_sir_tpu_torch.ops.ell import EllAdj
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ell = EllAdj.from_graph(graph, device=dev)
+    build_s = time.perf_counter() - t0
+    k1 = Spmm2Adj.from_graph(graph, device=dev)
+    rng = np.random.default_rng([SEED, 7])
+    x = torch.as_tensor(rng.standard_normal((DISPATCH_BATCH, graph.n_nodes, 64), np.float32),
+                        device=dev)
+    with torch.no_grad():
+        got, want = ell.matvec(x), spmm2(k1.plan, x)
+        scale = spmm2_plain(k1.plan, x.abs())
+        err = (got - want).abs()
+        if not torch.isfinite(got).all() or (err > KERNEL_REL_TOL * (1.0 + scale)).any():
+            raise AssertionError(f"EllAdj disagrees with K1 (max abs err {float(err.max())})")
+        ell_ms = time_ms(lambda: ell.matvec(x), 10)
+        k1_ms = time_ms(lambda: spmm2(k1.plan, x), 50)
+    row = {"phase": "ell", "n": graph.n_nodes, "edges": graph.n_edges,
+           "shape": [DISPATCH_BATCH, graph.n_nodes, 64], "buckets": len(ell.bucket_idx),
+           "widths": [int(b.shape[1]) for b in ell.bucket_idx],
+           "gathered_rows": int(sum(b.numel() for b in ell.bucket_idx)),
+           "host_build_s": build_s, "ell_ms": ell_ms, "k1_ms": k1_ms,
+           "max_abs_err_vs_k1": float(err.max()), "tol": f"{KERNEL_REL_TOL} * (1 + sum|x|)",
+           "ok": True}
+    emit(row)
+    return row
+
+
+def host_cpu() -> str:
+    """The host's CPU (its model where ``/proc/cpuinfo`` names one), its
+    architecture and logical core count, for host times."""
+    model = "CPU"
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.lower().startswith(("model name", "cpu model"))), model)
+    return f"{model} ({platform.machine()}), {os.cpu_count()} logical cores"
+
+
+def best_ms(fn, repeats: int = 3) -> float:
+    """The least host wall time of ``fn()`` over ``repeats`` calls."""
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times)
+
+
+def phase_native(graph) -> dict:
+    """The native graph core (``native/graphcore.cc``, built with g++ at
+    first use) must load on this machine; graph construction (coalescing the
+    undirected pairs), K1's plan build and DMP's reverse-edge index with the
+    library must equal the numpy path, element for element, at enron size;
+    the host ms of both."""
+    from gn_ode_sir_tpu_torch import native
+    from gn_ode_sir_tpu_torch.models.dmp import cave_index
+
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("the native graph core did not build or load (g++ -O3 -shared)")
+    load_s = time.perf_counter() - t0
+    keep = graph.src < graph.dst
+    pairs = np.stack([graph.src[keep], graph.dst[keep]], axis=1)
+    pairs = pairs[np.random.default_rng([SEED, 8]).permutation(len(pairs))]
+    calls = {
+        "coalesce": lambda: graph_from_edges(graph.n_nodes, pairs),
+        "csr_plan": lambda: CsrPlan.build(graph.src, graph.dst, graph.n_nodes, device="cpu"),
+        "reverse_edge_index": lambda: cave_index(graph.src, graph.dst),
+    }
+    out, ms = {}, {}
+    for switch in ("native", "numpy"):
+        if switch == "numpy":
+            os.environ["GN_ODE_SIR_NO_NATIVE"] = "1"
+        try:
+            for name, fn in calls.items():
+                out[name, switch] = fn()
+                ms[f"{name}_{switch}_ms"] = best_ms(fn)
+        finally:
+            os.environ.pop("GN_ODE_SIR_NO_NATIVE", None)
+    g_lib, g_np = out["coalesce", "native"], out["coalesce", "numpy"]
+    plans = out["csr_plan", "native"], out["csr_plan", "numpy"]
+    fields = ("row_ptr", "src", "dst", "w", "edge_item", "item_row", "work", "fix_row", "fix_ptr")
+    if not (np.array_equal(g_lib.src, g_np.src) and np.array_equal(g_lib.dst, g_np.dst)
+            and np.array_equal(g_lib.src, graph.src) and np.array_equal(g_lib.dst, graph.dst)
+            and all(torch.equal(getattr(plans[0], f), getattr(plans[1], f)) for f in fields)
+            and np.array_equal(out["reverse_edge_index", "native"],
+                               out["reverse_edge_index", "numpy"])):
+        raise AssertionError("the native graph core disagrees with the numpy path")
+    row = {"phase": "native", "n": graph.n_nodes, "edges": graph.n_edges,
+           "undirected_pairs": len(pairs), "library": str(native.library_path().name),
+           "first_use_s": load_s, "host": host_cpu(), **ms,
+           "equal_to_numpy": True, "ok": True}
+    emit(row)
+    return row
+
+
+def _trial_batch(data, k: int) -> dict:
+    """Trial ``k`` as a one-row SPMD batch (numpy)."""
+    sl = slice(k, k + 1)
+    return {"s0": data.s0[sl], "i0": data.i0[sl], "r0": data.r0[sl], "beta": data.beta[sl],
+            "gamma": data.gamma[sl], "labels": data.labels[sl], "weight": np.ones(1, np.float32)}
+
+
+def _sgd_update(params, step):
+    """Params on the card, one SGD step at lr 1 by ``step(params, optimizer)``:
+    (loss, the update of every leaf, i.e. minus its gradient)."""
+    p = tree_map(lambda t: t.detach().to("cuda").clone().requires_grad_(True), params)
+    before = {path: leaf.detach().clone() for path, leaf in tree_leaves(p)}
+    loss = float(step(p, torch.optim.SGD([leaf for _, leaf in tree_leaves(p)], lr=1.0)))
+    return loss, {path: (leaf.detach() - before[path]).cpu() for path, leaf in tree_leaves(p)}
+
+
+def _held_update(what, got, want) -> dict:
+    """Loss within ``SPMD_LOSS_ATOL``, every leaf's update within
+    ``SPMD_LEAF_RTOL`` of its largest entry (max-norm)."""
+    (loss_got, upd_got), (loss_want, upd_want) = got, want
+    rel = {k: float((upd_got[k] - u).abs().max()) / max(float(u.abs().max()), 1e-30)
+           for k, u in upd_want.items()}
+    worst = worst_leaf(rel)
+    if abs(loss_got - loss_want) > SPMD_LOSS_ATOL or worst["max"] > SPMD_LEAF_RTOL:
+        raise AssertionError(f"{what}: loss {loss_got} vs {loss_want}, worst leaf {worst}")
+    return {"loss": loss_got, "loss_abs_err": abs(loss_got - loss_want), "worst_leaf": worst,
+            "bit_equal": loss_got == loss_want and all(
+                torch.equal(upd_got[k], u) for k, u in upd_want.items())}
+
+
+def _ensemble_summary(res) -> dict:
+    return {"history": [[e, np.asarray(a).tolist(), np.asarray(b).tolist()]
+                        for e, a, b in res.history],
+            "best_epoch": np.asarray(res.best_epoch).tolist(),
+            "test_loss": np.asarray(res.test_loss).tolist(),
+            "params": {p: leaf.cpu() for p, leaf in tree_leaves(res.params)}}
+
+
+def _ensemble_err(a, b) -> float:
+    """The largest difference between two ensemble results' losses and params."""
+    flat = lambda r: np.concatenate(
+        [np.ravel(h[1] + h[2]) for h in r["history"]] + [np.ravel(r["test_loss"])]
+        + [t.numpy().ravel() for t in r["params"].values()])
+    return float(np.abs(flat(a) - flat(b)).max())
+
+
+def phase_parallel(graph, trials, root, save_dir) -> dict:
+    """``parallel/`` on this one card, in a process group of this process
+    alone over NCCL (rendezvous on 127.0.0.1; a multi-card group is not
+    available here): (a) ``make_spmd_train_step`` (C7, hidden 64, batch 1,
+    K1) against the single-device step, (b) ``make_spmd_train_step_2d`` on a
+    (1, 1) data x edge mesh through ``EdgeShardedCooAdj`` against (a), both
+    one SGD step at lr 1 so that the leaf update is the gradient; (c)
+    ``simulate_sir_sharded`` (K2) at the label path's size; (d) ``cli.infer
+    --spmd`` against the same run without the flag, bit for bit, and the
+    sharded dispatch (``make_spmd_predict_fn`` with its all-gather) against
+    the plain one; (e) ``fit_ensemble(mesh=)`` over a member group of size
+    1, and with ``data_axis`` on a (1, 1) mesh, against the run without a
+    mesh."""
+    import torch.distributed as dist
+
+    from gn_ode_sir_tpu_torch import parallel
+    from gn_ode_sir_tpu_torch.train import fit_ensemble
+
+    t0 = time.perf_counter()
+    mesh = parallel.make_mesh(device_type="cuda")
+    mesh_2d = parallel.make_mesh((1, 1), ("data", "edge"), device_type="cuda")
+    setup_s = time.perf_counter() - t0
+    if dist.get_world_size() != 1 or dist.get_backend() != "nccl":
+        raise AssertionError(f"process group {dist.get_backend()} x {dist.get_world_size()}")
+    argv = ["--model", "ode_nn", "--hidden", "64", "--method", "euler", "--deltaT", "0.5",
+            "--maxTime", str(MAX_TIME), "--batch_size", "1", "--spmm", "auto"]
+    args = worker.build_parser().parse_args([*argv, "--device", "cuda"])
+    model, adj = worker.build_model_and_adj(args, graph)
+    triples = load_or_extract_labels_many(graph, trials, sim=LABEL_SIMS, max_time=MAX_TIME,
+                                          save_dir=save_dir, device="cuda")
+    data = build_trial_data(graph.n_nodes, [t[0] for t in trials], [t[1] for t in trials],
+                            [t[2] for t in trials], triples)
+    params = model.init(torch.Generator().manual_seed(SEED), device="cpu")
+    batch = _trial_batch(data, 0)
+    on = lambda k: torch.as_tensor(batch[k], device="cuda")
+    out = {"phase": "parallel", "world_size": 1, "backend": "nccl", "setup_s": setup_s}
+
+    torch.cuda.synchronize()
+    spmm2.launches = spmm2.backward_launches = sir_step.launches = 0  # the paths start here
+
+    def single(p, opt):
+        loss = l1_sir_loss(model.predict(p, adj, *(on(k) for k in ("s0", "i0", "r0", "beta",
+                                                                  "gamma"))),
+                           on("labels"), trial_weight=on("weight"))
+        loss.backward()
+        opt.step()
+        return loss
+
+    want = _sgd_update(params, single)
+    step_a = parallel.make_spmd_train_step(model, lambda gi: adj, mesh)
+    got_a = _sgd_update(params, lambda p, opt: step_a(p, opt, batch))
+    out["a_train_step"] = _held_update("(a) make_spmd_train_step", got_a, want)
+    t0 = time.perf_counter()
+    step_b = parallel.make_spmd_train_step_2d(model, mesh_2d, graph.n_nodes)
+    ones = np.ones(graph.n_edges, np.float32)
+    got_b = _sgd_update(params, lambda p, opt: step_b(p, opt, batch, graph.src, graph.dst, ones))
+    out["b_train_step_2d"] = {**_held_update("(b) make_spmd_train_step_2d", got_b, got_a),
+                              "seconds_with_plan_build": time.perf_counter() - t0}
+
+    k2_before = sir_step.launches
+    t0 = time.perf_counter()
+    nodes, beta, gamma = trials[0]
+    s, i, r = parallel.simulate_sir_sharded(graph, nodes, beta, gamma, mesh=mesh,
+                                            sims=LABEL_SIMS, max_time=MAX_TIME, key=1000)
+    sim_s = time.perf_counter() - t0
+    if (s.shape != (MAX_TIME, graph.n_nodes) or np.abs(s + i + r - 1.0).max() > 1e-9
+            or (np.diff(r, axis=0) < 0).any() or r[-1].mean() <= 0.0):
+        raise AssertionError("(c) simulate_sir_sharded: S + I + R != 1, R not monotone, or "
+                             "no spread")
+    out["c_simulate_sir_sharded"] = {"sims": LABEL_SIMS, "seconds": sim_s,
+                                     "k2_launches": sir_step.launches - k2_before,
+                                     "final_recovered_mean": float(r[-1].mean())}
+
+    serve_dir = os.path.join(root, "serve_spmd")
+    os.makedirs(serve_dir)
+    dataset = os.path.join(serve_dir, graph.name)
+    with open(dataset + ".pkl", "wb") as f:
+        pickle.dump(Graph(n_nodes=graph.n_nodes, src=graph.src, dst=graph.dst), f)
+    save_params(os.path.join(serve_dir, "ckpt"), params)
+    serve_argv = ["--device", "cuda", "--ckpt", os.path.join(serve_dir, "ckpt"),
+                  "--dataset", dataset, *argv[:10], "--spmm", "auto",
+                  *trial_argv(trials[:2])]
+    npz = {flag: os.path.join(serve_dir, f"out{flag}.npz") for flag in ("", "--spmd")}
+    with contextlib.redirect_stdout(io.StringIO()):
+        for flag, path in npz.items():
+            if infer.main([*serve_argv, *([flag] if flag else []), "--out", path]) != 0:
+                raise AssertionError(f"cli.infer {flag} did not return 0")
+    plain_out, spmd_out = np.load(npz[""]), np.load(npz["--spmd"])
+    if not all(np.array_equal(plain_out[k], spmd_out[k]) for k in ("S", "I", "R")):
+        raise AssertionError("(d) cli.infer --spmd differs from the run without the flag")
+    sb = infer.scenario_batch(graph.n_nodes, [t[0] for t in trials], [t[1] for t in trials],
+                              [t[2] for t in trials])
+    p_card = tree_map(lambda t: t.to("cuda"), params)
+    sharded = infer._spmd_dispatch(model, p_card, adj, sb, summary=True)
+    plain = infer._dispatch(model, p_card, adj, sb, reduce_fn=infer._summary_reduce)
+    if not np.array_equal(sharded, plain):
+        raise AssertionError("(d) the sharded summary dispatch differs from the plain one")
+    out["d_infer_spmd"] = {"scenarios_npz": 2, "npz_bit_equal": True,
+                           "summary_scenarios": len(trials), "sharded_dispatch_bit_equal": True}
+
+    ens_model = dataclasses.replace(model, hidden=MG_HIDDEN)
+    seeds = [0, 1]
+    runs = {}
+    for name, kw in (("no_mesh", {}),
+                     ("mesh", {"mesh": parallel.make_mesh(axis_names=("ensemble",),
+                                                          device_type="cuda")}),
+                     ("mesh_data_axis", {"mesh": parallel.make_mesh(
+                         (1, 1), ("ensemble", "data"), device_type="cuda"),
+                         "data_axis": "data"})):
+        t0 = time.perf_counter()
+        res = fit_ensemble(ens_model, lambda leaves: torch.optim.Adam(leaves, lr=1e-3),
+                           init_ensemble(ens_model, seeds, device="cuda"), data,
+                           [0, 1, 2], [3], [4, 5], lambda gi: adj, seeds=seeds, epochs=1,
+                           batch_size=1, verbose=False, **kw)
+        runs[name] = (_ensemble_summary(res), time.perf_counter() - t0)
+    errs = {name: _ensemble_err(runs[name][0], runs["no_mesh"][0])
+            for name in ("mesh", "mesh_data_axis")}
+    if max(errs.values()) > SPMD_LOSS_ATOL:
+        raise AssertionError(f"(e) fit_ensemble(mesh=) differs from the run without: {errs}")
+    out["e_fit_ensemble_mesh"] = {"members": len(seeds), "hidden": MG_HIDDEN,
+                                  "max_abs_err": errs,
+                                  "seconds": {k: v[1] for k, v in runs.items()},
+                                  "history": runs["mesh"][0]["history"]}
+    torch.cuda.synchronize()
+    out["k1_launches"] = spmm2.launches  # the paths end here
+    out["k1_backward_launches"] = spmm2.backward_launches
+    out["k2_launches"] = sir_step.launches
+    out["tol"] = (f"loss {SPMD_LOSS_ATOL}, leaf update {SPMD_LEAF_RTOL} (max-norm), "
+                  "serving bit for bit")
+    infer._serving_mesh.cache_clear()
+    dist.destroy_process_group()
+    out["ok"] = True
+    emit(out)
+    return out
+
+
+def phase_utils(graph, trials, root, save_dir) -> dict:
+    """``utils/``: a ``trace()`` around one training step (C7, batch 1, K1)
+    leaves a trace file with the card's kernels in it, ``fit(profile_dir=)``
+    traces its epoch range, ``device_memory_stats`` reads the allocator, and
+    the roofline models score the step and K1 against ``H100_PEAKS``."""
+    from gn_ode_sir_tpu_torch.train import fit
+    from gn_ode_sir_tpu_torch.utils import device_memory_stats, trace
+    from gn_ode_sir_tpu_torch.utils.roofline import (H100_PEAKS, mg_train_epoch_model,
+                                                     spmm_apply_model, utilization)
+
+    argv = ["--model", "ode_nn", "--hidden", "64", "--method", "euler", "--deltaT", "0.5",
+            "--maxTime", str(MAX_TIME), "--batch_size", "1", "--spmm", "auto",
+            "--device", "cuda"]
+    model, adj = worker.build_model_and_adj(worker.build_parser().parse_args(argv), graph)
+    triples = load_or_extract_labels_many(graph, trials, sim=LABEL_SIMS, max_time=MAX_TIME,
+                                          save_dir=save_dir, device="cuda")
+    data = build_trial_data(graph.n_nodes, [t[0] for t in trials], [t[1] for t in trials],
+                            [t[2] for t in trials], triples)
+    params = tree_map(lambda t: t.requires_grad_(True),
+                      model.init(torch.Generator().manual_seed(SEED), device="cuda"))
+    opt = torch.optim.Adam([leaf for _, leaf in tree_leaves(params)], lr=1e-4)
+    first = lambda a: torch.as_tensor(a[:1], device="cuda")
+    xs = tuple(first(a) for a in (data.s0, data.i0, data.r0, data.beta, data.gamma))
+    labels, ones = first(data.labels), torch.ones(1, device="cuda")
+    x1 = torch.randn((1, graph.n_nodes, 64), device="cuda")
+    k1_b1_ms = time_ms(lambda: spmm2(adj.plan, x1), 50)  # K1 at the training shape
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        l1_sir_loss(model.predict(params, adj, *xs), labels, trial_weight=ones).backward()
+        opt.step()
+
+    torch.cuda.synchronize()
+    spmm2.launches = spmm2.backward_launches = 0  # the paths start here
+    step()
+
+    def step_ms(repeats: int = 3) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / repeats * 1e3
+
+    untraced_ms = step_ms()
+    trace_dir = os.path.join(root, "trace")
+    with trace(trace_dir):
+        traced_ms = step_ms(1)
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if not files:
+        raise AssertionError("trace() left no trace file")
+    with open(files[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if not kernels:
+        raise AssertionError("the trace holds no kernel of the card")
+    profile_dir = os.path.join(root, "fit_profile")
+    res = fit(dataclasses.replace(model, hidden=MG_HIDDEN),
+              lambda leaves: torch.optim.Adam(leaves, lr=1e-3),
+              dataclasses.replace(model, hidden=MG_HIDDEN).init(
+                  torch.Generator().manual_seed(SEED), device="cuda"),
+              data, [0, 1, 2], [3], [4, 5], lambda gi: adj, epochs=2, verbose=False,
+              profile_dir=profile_dir, profile_epochs=(1, 1))
+    if not glob.glob(os.path.join(profile_dir, "*.pt.trace.json")) or len(res.history) != 2:
+        raise AssertionError("fit(profile_dir=) left no trace")
+    stats = device_memory_stats()
+    if not stats:
+        raise AssertionError("device_memory_stats() is empty on the card")
+    after_ms = step_ms()  # the profiler is off again
+    torch.cuda.synchronize()
+    launches = (spmm2.launches, spmm2.backward_launches)  # the paths end here
+    step_model = mg_train_epoch_model(graph.n_nodes, 64, 1, [(1, graph.n_edges)], EULER_STEPS)
+    k1_model = spmm_apply_model(graph.n_nodes, graph.n_edges, 64)
+    row = {"phase": "utils", "trace_file_bytes": os.path.getsize(files[0]),
+           "trace_kernel_events": kernels, "fit_profile_epochs": [1, 1],
+           "memory_stats_keys": len(stats),
+           "allocated_bytes_peak": stats.get("allocated_bytes.all.peak"),
+           "step_ms": untraced_ms, "step_ms_traced": traced_ms,
+           "step_ms_after_tracing": after_ms, "k1_b1_ms": k1_b1_ms,
+           "utilization_step": utilization(step_model, untraced_ms / 1e3, H100_PEAKS),
+           "utilization_k1_b1": utilization(k1_model, k1_b1_ms / 1e3, H100_PEAKS),
+           "k1_launches": launches[0], "k1_backward_launches": launches[1], "ok": True}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1700,6 +2135,9 @@ def main() -> int:
     k1, k1_mg = phase_kernel(graph, mg_graphs)
     k2 = phase_kernel_k2(graph, trials[:chunk])
     k1b, k1b_mg = phase_kernel_bwd(graph, mg_graphs)
+    shard_fwd, shard_bwd = phase_kernel_shards(graph)
+    phase_ell(graph)
+    phase_native(graph)
     serve = phase_serve(graph)
     with tempfile.TemporaryDirectory() as root:
         # the reference's layout, so that the matrix's jobs find the labels
@@ -1708,14 +2146,20 @@ def main() -> int:
         labels = phase_labels(graph, trials, save_dir, chunk)
         train = phase_train(graph, trials, save_dir)
         matrix = phase_matrix_single(graph, trials, mg_graphs[FB_FOOD], root, save_dir)
-    del graph
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as save_dir:
-        mg = phase_multigraph(mg_graphs, save_dir)
-        matrix["multigraph"] = matrix_multigraph(mg_graphs, save_dir)
-        emit({"phase": "matrix", **matrix["multigraph"], "ok": True})
-    with tempfile.TemporaryDirectory() as save_dir:
-        phase_baselines(mg_graphs[WIKI], mg_graphs[FB_SOCIAL], save_dir)
+        parallel = phase_parallel(graph, trials, root, save_dir)
+        del graph
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as mg_dir:
+            mg = phase_multigraph(mg_graphs, mg_dir)
+            matrix["multigraph"] = matrix_multigraph(mg_graphs, mg_dir)
+            emit({"phase": "matrix", **matrix["multigraph"], "ok": True})
+        with tempfile.TemporaryDirectory() as baselines_dir:
+            phase_baselines(mg_graphs[WIKI], mg_graphs[FB_SOCIAL], baselines_dir)
+        # last, so that the profiler's tracing cannot touch the times of the
+        # phases before it; the same seeded graph, whose labels are cached
+        # in save_dir
+        utils = phase_utils(powerlaw_graph(ENRON_NODES, ENRON_DIRECTED_EDGES, SEED), trials,
+                            root, save_dir)
     times = lambda row: {
         "case": row["case"], "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -1726,18 +2170,18 @@ def main() -> int:
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, **times(row), "cases": [times(r) for r in more]}
     forward = lambda phase: phase["k1_launches"] - phase.get("k1_backward_launches", 0)
-    paths = [train, mg, *matrix.values()]
+    paths = [train, mg, *matrix.values(), parallel, utils]
     emit({"kernels": [
         kernel("spmm2", "gn_ode_sir_tpu_torch/csrc/spmm2.cu",
                "gn_ode_sir_tpu/ops/pallas_spmm2.py:119",
-               serve["k1_launches"] + sum(forward(p) for p in paths), k1, k1_mg),
+               serve["k1_launches"] + sum(forward(p) for p in paths), k1, k1_mg + shard_fwd),
         kernel("spmm2_bwd", "gn_ode_sir_tpu_torch/csrc/spmm2.cu",
                "gn_ode_sir_tpu/ops/pallas_spmm2.py:239",
-               sum(p.get("k1_backward_launches", 0) for p in paths), k1b, k1b_mg),
+               sum(p.get("k1_backward_launches", 0) for p in paths), k1b, k1b_mg + shard_bwd),
         kernel("sir_step", "gn_ode_sir_tpu_torch/csrc/sir_step.cu",
                "gn_ode_sir_tpu/sim/pallas_step.py:36",
                labels["k2_launches"] + mg["k2_launches"]
-               + matrix["node_split"]["k2_launches"], k2)]})
+               + matrix["node_split"]["k2_launches"] + parallel["k2_launches"], k2)]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -14,16 +14,26 @@ checkpoint is carried across with ``params_from_numpy``) and are validated
 against the declared architecture before serving. Everything runs under
 ``torch.inference_mode()`` on ``--device`` (default cuda, which raises when
 no card is visible).
+
+With ``--spmd`` the scenario batch splits over the processes of a group
+(one per device, as ``torchrun --nproc_per_node N`` starts them; the group
+is joined from its environment through ``parallel.init_distributed``):
+process r scores its block through ``parallel.spmd.make_spmd_predict_fn``
+(per-scenario summaries reduced where they are computed), the blocks are
+all-gathered, and process 0 writes the output. A group of one process takes
+the plain path, as the JAX package does on one device.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gn_ode_sir_tpu_torch.cli.worker import (
     build_model_and_adj,
@@ -68,8 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="optional per-scenario summary CSV (peak infection "
                         "time/size, final recovered fraction)")
     p.add_argument("--spmd", action="store_true",
-                   help="shard the scenario batch over all local devices "
-                        "(not ported yet)")
+                   help="shard the scenario batch over the processes of the group "
+                        "(torchrun: one per device); process 0 writes the output")
     p.add_argument("--dispatch_batch", type=int, default=None,
                    help="cap scenarios per device dispatch (the f32 trajectory "
                         "costs T*3*n*h*4 bytes per scenario); the tail chunk is "
@@ -195,22 +205,52 @@ def _dispatch(model, params, adj, arrays, reduce_fn=None) -> np.ndarray:
         return out.cpu().numpy()
 
 
-def _no_spmd(spmd: bool) -> None:
-    if spmd:
-        raise NotImplementedError(
-            "--spmd is not ported yet (ROADMAP.md Queue 1: parallel/)")
+def _spmd_world() -> int:
+    """The size of the process group the sharded path splits over (1: none)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+@functools.cache
+def _serving_mesh(device_type: str):
+    """One mesh over the whole group for every sharded dispatch of this
+    process (building a mesh creates process groups)."""
+    from gn_ode_sir_tpu_torch.parallel import make_mesh
+
+    return make_mesh(device_type=device_type)
+
+
+def _spmd_dispatch(model, params, adj, arrays, *, summary: bool) -> np.ndarray:
+    """One dispatch split over the group: the batch is padded to a multiple
+    of the group size by repeating its last scenario (a valid model input),
+    each process scores its block (and reduces it to summaries when
+    ``summary``), the blocks are all-gathered and the padding sliced off."""
+    from gn_ode_sir_tpu_torch.parallel.spmd import make_spmd_predict_fn
+
+    b, world = arrays[0].shape[0], _spmd_world()
+    pad = (-b) % world
+    if pad:
+        arrays = [np.concatenate([a, np.repeat(a[-1:], pad, 0)], 0) for a in arrays]
+    dev = next(leaf for _, leaf in tree_leaves(params)).device
+    predict = make_spmd_predict_fn(model, lambda gi: adj, _serving_mesh(dev.type),
+                                   reduce_fn=_summary_reduce if summary else None)
+    out = predict(params, dict(zip(("s0", "i0", "r0", "beta", "gamma"), arrays)))
+    out = out.cpu().numpy()
+    return out[:b] if summary else out[:, :b]
 
 
 def predict_scenarios(model, params, adj, s0, i0, r0, beta, gamma, *,
                       spmd=False, dispatch_batch=None) -> np.ndarray:
     """[T, B, n, 3] probabilities on the params' device; ``dispatch_batch``
-    caps the scenarios of one dispatch."""
-    _no_spmd(spmd)
+    caps the scenarios of one dispatch; ``spmd`` splits each dispatch over
+    the process group (every process returns the whole result)."""
     arrays = (s0, i0, r0, beta, gamma)
+    if spmd and _spmd_world() > 1:
+        call = lambda *c: _spmd_dispatch(model, params, adj, c, summary=False)
+    else:
+        call = lambda *c: _dispatch(model, params, adj, c)
     if dispatch_batch and s0.shape[0] > dispatch_batch:
-        return _chunked(lambda *c: _dispatch(model, params, adj, c),
-                        arrays, dispatch_batch, batch_axis=1)
-    return _dispatch(model, params, adj, arrays)
+        return _chunked(call, arrays, dispatch_batch, batch_axis=1)
+    return call(*arrays)
 
 
 def predict_summaries(model, params, adj, s0, i0, r0, beta, gamma, *,
@@ -218,11 +258,14 @@ def predict_summaries(model, params, adj, s0, i0, r0, beta, gamma, *,
     """Summary-only serving: each dispatch reduces its [T, B, n, 3]
     trajectory on the device to [B, 3] (peak infected fraction/time, final
     recovered fraction), so only a few floats per scenario come back.
-    Summaries are per-scenario, so ``dispatch_batch`` chunking is exact.
+    Summaries are per-scenario, so ``dispatch_batch`` chunking is exact, and
+    so is ``spmd``, where each process reduces its own block.
     Returns the same rows as :func:`summarize`."""
-    _no_spmd(spmd)
     arrays = (s0, i0, r0, beta, gamma)
-    call = lambda *c: _dispatch(model, params, adj, c, reduce_fn=_summary_reduce)
+    if spmd and _spmd_world() > 1:
+        call = lambda *c: _spmd_dispatch(model, params, adj, c, summary=True)
+    else:
+        call = lambda *c: _dispatch(model, params, adj, c, reduce_fn=_summary_reduce)
     if dispatch_batch and s0.shape[0] > dispatch_batch:
         out = _chunked(call, arrays, dispatch_batch, batch_axis=0)
     else:
@@ -252,8 +295,21 @@ def main(argv=None) -> int:
 
     apply_data_root_default()
     args = build_parser().parse_args(argv)
-    _no_spmd(args.spmd)
     device = resolve_device(args.device)
+    joined = False
+    if args.spmd:
+        from gn_ode_sir_tpu_torch.parallel import init_distributed
+
+        joined = init_distributed(device_type=device.type)
+    try:
+        return _serve(args, device)
+    finally:
+        if joined:
+            _serving_mesh.cache_clear()
+            dist.destroy_process_group()
+
+
+def _serve(args, device) -> int:
     # full-f32 matmuls: TF32 would quietly change every dense A·Z and linear
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -278,12 +334,17 @@ def main(argv=None) -> int:
     params = restore_params(args.ckpt, device=device)
     check_params_match(model, params)
     s0, i0, r0, beta, gamma = scenario_batch(g.n_nodes, seeds, beta, gamma)
+    writer = not args.spmd or not dist.is_initialized() or dist.get_rank() == 0
     if args.summary_only:
         rows = predict_summaries(model, params, adj, s0, i0, r0, beta, gamma,
-                                 dispatch_batch=args.dispatch_batch)
+                                 spmd=args.spmd, dispatch_batch=args.dispatch_batch)
+        if not writer:
+            return 0
     else:
-        out = predict_scenarios(model, params, adj, s0, i0, r0, beta, gamma,
+        out = predict_scenarios(model, params, adj, s0, i0, r0, beta, gamma, spmd=args.spmd,
                                 dispatch_batch=args.dispatch_batch)  # [T, B, n, 3]
+        if not writer:
+            return 0
         probs = np.transpose(out, (1, 0, 2, 3))  # [B, T, n, 3]
         np.savez(
             args.out,

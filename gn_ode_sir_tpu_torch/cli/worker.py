@@ -21,8 +21,6 @@ options ``--method dopri5_adaptive`` and ``--adjoint backsolve``; the
 closed-form baselines ``--model dmp`` and ``--model rk``, and
 ``--rk_baseline``, which fills the ``loss_baseline`` and ``rk_time``
 columns. The model and adjacency construction is shared with ``cli.infer``.
-What is left (``--spmm ell``) raises ``NotImplementedError`` naming its
-ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -696,14 +694,6 @@ def _apply_config_defaults(parser, argv):
     return argv
 
 
-def _refuse_unported(args) -> None:
-    """What the JAX worker does and the port does not yet raises here, before
-    any label is extracted, naming the ROADMAP.md item that ports it."""
-    if args.spmm == "ell" and args.model == "ode_nn":
-        raise NotImplementedError(
-            "--spmm ell is not ported yet (ROADMAP.md Queue 1 item 16: ops/ell.py)")
-
-
 def _check_modes(args) -> None:
     """The JAX worker's refusals of mode combinations."""
     if args.ensemble > 1:
@@ -732,7 +722,6 @@ def main(argv=None, graph=None):
     if args.init_seed is None:
         args.init_seed = args.seed
     _check_modes(args)
-    _refuse_unported(args)
     resolve_device(args.device)
     # full-f32 matmuls: TF32 would quietly change every dense A·Z and linear
     torch.backends.cuda.matmul.allow_tf32 = False

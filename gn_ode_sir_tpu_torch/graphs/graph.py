@@ -92,7 +92,13 @@ def graph_from_edges(n_nodes: int, undirected_edges, name: str = "graph") -> Gra
             f"edge ({bad[0]}, {bad[1]}) has a node id outside "
             f"[0, {n_nodes}) — node ids must be 0..n_nodes-1"
         )
-    # canonical-code dedup, symmetrize, (dst, src) sort
+    from gn_ode_sir_tpu_torch import native
+
+    out = native.coalesce_undirected(pairs, n_nodes)
+    if out is not None:
+        return Graph(n_nodes=n_nodes, src=out[0], dst=out[1], name=name)
+
+    # numpy fallback: canonical-code dedup, symmetrize, (dst, src) sort
     n = int(n_nodes)
     a = np.minimum(pairs[:, 0], pairs[:, 1])
     b = np.maximum(pairs[:, 0], pairs[:, 1])

@@ -14,6 +14,9 @@ import pickle
 
 from gn_ode_sir_tpu_torch.graphs.graph import Graph, graph_from_networkx
 
+# the directory of the reference's dataset strings ('./real_graphs/<name>')
+GRAPH_STEM = "real_graphs"
+
 
 def _stem(path: str) -> str:
     base = os.path.basename(path)

@@ -7,6 +7,7 @@ from gn_ode_sir_tpu_torch.odeint.dopri import odeint_grid_adaptive
 
 from gn_ode_sir_tpu_torch.odeint.resample import (
     integer_time_indices,
+    resample_expected_counts,
     resample_integer_times,
 )
 from gn_ode_sir_tpu_torch.odeint.solvers import METHODS, odeint_grid, step_fn
@@ -18,5 +19,6 @@ __all__ = [
     "odeint_grid_backsolve",
     "step_fn",
     "integer_time_indices",
+    "resample_expected_counts",
     "resample_integer_times",
 ]

@@ -19,3 +19,9 @@ def resample_integer_times(traj: torch.Tensor, max_time: int, delta_t: float):
                           dtype=torch.long, device=traj.device)
     return traj[idx]
 
+
+def resample_expected_counts(traj: torch.Tensor, max_time: int, delta_t: float):
+    """Expected COUNT trajectory at integer times: the sum over the node axis
+    (axis 1) of :func:`resample_integer_times` (the reference resamplers'
+    ``count=True`` mode, aggregate infected-count curves)."""
+    return resample_integer_times(traj, max_time, delta_t).sum(dim=1)

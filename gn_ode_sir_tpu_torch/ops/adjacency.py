@@ -6,6 +6,7 @@ backend returns float32.
 - :class:`DenseAdj` — a matmul with the materialized adjacency (f32 or bf16).
 - :class:`CooAdj`   — gather + ``index_add_`` over a shared [E] edge list, or
   over per-sample padded [B, E] edge rows (heterogeneous multi-graph batches).
+- :class:`~gn_ode_sir_tpu_torch.ops.ell.EllAdj` — bucketed-ELL gathers.
 - :class:`~gn_ode_sir_tpu_torch.ops.spmm2.Spmm2Adj` — the CUDA kernel K1.
 """
 
@@ -68,7 +69,8 @@ def adjacency_from_graph(graph, *, kind: str = "auto", device):
 
     ``kind``: 'auto' (dense up to ``DENSE_NODE_THRESHOLD`` nodes, K1 above
     it, on any device — on a CPU tensor K1 runs its plain version), or an
-    explicit 'dense' | 'dense-bf16' | 'coo' | 'pallas2' | 'pallas2-bf16'."""
+    explicit 'dense' | 'dense-bf16' | 'coo' | 'ell' | 'pallas2' |
+    'pallas2-bf16'."""
     if kind not in KINDS:
         raise ValueError(f"unknown adjacency kind {kind!r}")
     if kind == "auto":
@@ -79,14 +81,14 @@ def adjacency_from_graph(graph, *, kind: str = "auto", device):
     if kind == "coo":
         return CooAdj(torch.as_tensor(graph.src, device=device),
                       torch.as_tensor(graph.dst, device=device), None, graph.n_nodes)
-    if kind in ("pallas2", "pallas2-bf16"):
-        from gn_ode_sir_tpu_torch.ops.spmm2 import Spmm2Adj
+    if kind == "ell":
+        from gn_ode_sir_tpu_torch.ops.ell import EllAdj
 
-        return Spmm2Adj.from_graph(
-            graph, precision="bf16" if kind.endswith("bf16") else "f32",
-            device=device)
-    raise NotImplementedError(
-        "the 'ell' adjacency is not ported yet (ROADMAP.md Queue 1: ops/ell.py)")
+        return EllAdj.from_graph(graph, device=device)
+    from gn_ode_sir_tpu_torch.ops.spmm2 import Spmm2Adj
+
+    return Spmm2Adj.from_graph(
+        graph, precision="bf16" if kind.endswith("bf16") else "f32", device=device)
 
 
 def adjacency_from_batch(batch, graph_idx, *, device) -> CooAdj:

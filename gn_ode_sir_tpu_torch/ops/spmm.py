@@ -43,6 +43,24 @@ def spmm_coo_batched(src, dst, x, n_nodes: int, edge_w=None):
     return segment_sum(msgs, dst, n_nodes, dim=1)
 
 
+def spmm(graph, x, edge_w=None, *, prefer_dense: bool | None = None):
+    """Dispatching SpMM over a host-side :class:`~gn_ode_sir_tpu_torch.graphs.Graph`,
+    on ``x``'s device. ``x`` is [n, h] or [B, n, h].
+
+    The dense product is taken up to ``DENSE_NODE_THRESHOLD`` nodes (unless
+    ``prefer_dense`` says otherwise) when no edge weights are given, else
+    the plain COO gather and ``index_add``."""
+    if prefer_dense is None:
+        prefer_dense = graph.n_nodes <= DENSE_NODE_THRESHOLD
+    if prefer_dense and edge_w is None:
+        return spmm_dense(torch.as_tensor(graph.dense_adjacency, device=x.device), x)
+    src = torch.as_tensor(graph.src, dtype=torch.long, device=x.device)
+    dst = torch.as_tensor(graph.dst, dtype=torch.long, device=x.device)
+    if x.dim() == 2:
+        return spmm_coo(src, dst, x, graph.n_nodes, edge_w)
+    return spmm_coo_batched(src, dst, x, graph.n_nodes, edge_w)
+
+
 def gcn_norm_edges(graph, add_self_loops: bool = True):
     """Symmetric GCN normalization D^-1/2 (A + I) D^-1/2, on the host.
 

@@ -45,8 +45,20 @@ Two routes for the member axis, chosen from the arguments
   ``dopri5_adaptive`` (which reads its grid indices back once per solve),
   and where the folded trajectories would not fit the budget.
 
-Not ported: ``mesh``/``data_axis`` (the member axis sharded over devices),
-ROADMAP.md Queue 1 item 15 (parallel/).
+Scaling out (``mesh``, a :func:`~gn_ode_sir_tpu_torch.parallel.make_mesh`
+mesh): the member axis splits over the ``mesh_axis`` group, K a multiple of
+its size. Each process trains its own block of members (folded or one by
+one, as above) and nothing crosses processes while training; at the end the
+members' histories, results, params and optimizer state are all-gathered
+over the group, so that every process returns the whole
+:class:`EnsembleFitResult` (``epoch_times``, ``test_time`` and ``routes``
+are this process's own). ``data_axis`` (a second mesh axis) splits the
+trial store's rows over that axis's group as well: each process keeps a
+contiguous block of the rows on its device, and the rows a minibatch (or
+the val and test passes) reads are assembled by one ``all_reduce(SUM)`` of
+zero-filled local rows, which is exact: every row has one non-zero
+contributor. The collectives run outside ``torch.func.vmap``. With a mesh,
+each process checkpoints into ``<checkpoint_dir>/rank<r>``.
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gn_ode_sir_tpu_torch.models.gnode import device_activation_budget
 from gn_ode_sir_tpu_torch.sim.mc_sir import fold_seed
@@ -105,6 +118,60 @@ class EnsembleFitResult:
     test_loss_all: Any = None  # [K, n_test] per-trial losses at each member's best epoch
     best_params: Any = None  # K-stacked params at each member's best-val epoch
     routes: tuple = ("fold", "fold")  # (training, evaluation), see member_routes
+
+
+_ROW_KEYS = ("s0", "i0", "r0", "beta", "gamma", "labels")
+
+
+class _Trials:
+    """The trial store on the device; :meth:`take` hands back the store and
+    the rows unchanged."""
+
+    def __init__(self, data: TrialData, device):
+        self.d = _data_to_device(data, device)
+
+    def take(self, idx):
+        return self.d, np.asarray(idx)
+
+
+class _ShardedTrials:
+    """The trial store split over the group of a mesh axis: this process
+    keeps rows [lo, hi) on its device. :meth:`take` assembles the rows
+    ``idx`` (any shape) into a store of their own with one ``all_reduce`` of
+    zero-filled local rows, and returns it with ``idx`` renumbered into it."""
+
+    def __init__(self, data: TrialData, device, mesh, axis: str):
+        from gn_ode_sir_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
+
+        n, size = data.num_trials, axis_size(mesh, axis)
+        per = -(-n // size)
+        self.lo = min(n, axis_index(mesh, axis) * per)
+        self.hi = min(n, self.lo + per)
+        self.local = {k: torch.as_tensor(getattr(data, k)[self.lo:self.hi], device=device)
+                      for k in _ROW_KEYS}
+        self.shapes = {k: getattr(data, k).shape[1:] for k in _ROW_KEYS}
+        self.graph_idx = np.asarray(data.graph_idx)
+        self.group, self.device = axis_group(mesh, axis), device
+
+    def take(self, idx):
+        idx = np.asarray(idx)
+        rows, where = np.unique(idx.reshape(-1), return_inverse=True)
+        widths = [int(np.prod(self.shapes[k])) for k in _ROW_KEYS]
+        buf = torch.zeros((rows.size, sum(widths)), device=self.device)
+        mine = (rows >= self.lo) & (rows < self.hi)
+        pick = torch.as_tensor(rows[mine] - self.lo, dtype=torch.long, device=self.device)
+        mine_t = torch.as_tensor(np.flatnonzero(mine), dtype=torch.long, device=self.device)
+        off = 0
+        for k, width in zip(_ROW_KEYS, widths):
+            buf[mine_t, off:off + width] = self.local[k][pick].reshape(-1, width).float()
+            off += width
+        dist.all_reduce(buf, group=self.group)
+        d, off = {}, 0
+        for k, width in zip(_ROW_KEYS, widths):
+            d[k] = buf[:, off:off + width].reshape(rows.size, *self.shapes[k])
+            off += width
+        d["graph_idx"] = self.graph_idx[rows]
+        return d, where.reshape(idx.shape)
 
 
 def _draws_dropout(model) -> bool:
@@ -163,6 +230,7 @@ def fit_ensemble(
     resume: bool = False,
     track_test_per_trial: bool = False,
     mesh=None,
+    mesh_axis: str = "ensemble",
     data_axis: str | None = None,
 ) -> EnsembleFitResult:
     """Train K members (one per entry of ``seeds``) together, each with
@@ -171,16 +239,33 @@ def fit_ensemble(
     auto checkpoints with exact-trace resume, and, with
     ``track_test_per_trial``, each member's per-trial test losses.
     ``optimizer``: ``leaves -> torch.optim.Optimizer``, bound to the trained
-    copy of the stacked leaves. Metrics are logged as the members' means."""
-    if mesh is not None or data_axis is not None:
-        raise NotImplementedError(
-            "mesh/data_axis (the member axis sharded over devices) is not ported yet "
-            "(ROADMAP.md Queue 1 item 15: parallel/)")
+    copy of the stacked leaves. Metrics are logged as the members' means.
+    ``mesh``/``mesh_axis``/``data_axis``: see the module docstring."""
+    if data_axis is not None:
+        if mesh is None:
+            raise ValueError("data_axis requires a mesh — without one the trial store "
+                             "cannot shard; drop data_axis or pass mesh=")
+        if data_axis == mesh_axis or data_axis not in (mesh.mesh_dim_names or ()):
+            raise ValueError(f"data_axis {data_axis!r} must name a mesh axis distinct from "
+                             f"mesh_axis {mesh_axis!r} (mesh has {mesh.mesh_dim_names})")
     K = len(seeds)
     lead = next(leaf for _, leaf in tree_leaves(params_stack)).shape[0]
     if lead != K:
         raise ValueError(f"params_stack leading axis {lead} != len(seeds) {K} — build it "
                          "with init_ensemble(model, seeds)")
+    if mesh is not None:
+        from gn_ode_sir_tpu_torch.parallel.mesh import axis_size, local_block
+
+        size = axis_size(mesh, mesh_axis)
+        if K % size:
+            raise ValueError(f"ensemble size {K} not divisible by mesh axis '{mesh_axis}' "
+                             f"of size {size}")
+        mine = local_block(K, mesh, mesh_axis)
+        seeds = list(seeds)[mine]
+        params_stack = tree_map(lambda t: t[mine], params_stack)
+        K = len(seeds)
+        if checkpoint_dir:
+            checkpoint_dir = os.path.join(checkpoint_dir, f"rank{dist.get_rank()}")
     e_adj_fn = eval_adj_fn or adj_fn
     for f in (adj_fn, eval_adj_fn):
         if (f is not None and getattr(f, "requires_grouped_batches", False)
@@ -218,7 +303,8 @@ def fit_ensemble(
     leaves = [leaf for _, leaf in tree_leaves(params)]
     opt = optimizer(leaves)
     snapshot = lambda: tree_map(lambda t: t.detach().clone(), params)
-    d = _data_to_device(data, device)
+    trials = (_ShardedTrials(data, device, mesh, data_axis) if data_axis is not None
+              else _Trials(data, device))
 
     evaluate1 = make_eval_fn(model, e_adj_fn, node_mask_fn, n_view=e_n_view)
     per_trial1 = (make_eval_per_trial_fn(model, e_adj_fn, node_mask_fn, n_view=e_n_view)
@@ -235,11 +321,13 @@ def fit_ensemble(
         members' item-weighted mean losses [K]."""
         epoch_seeds = [fold_seed(int(s) + 1, epoch) for s in seeds]
         rng = torch.Generator(device=device)
-        idx_t, w_t = _index(bi, device), torch.as_tensor(bw, device=device)
+        w_t = torch.as_tensor(bw, device=device)
         gids = np.asarray(data.graph_idx)[np.asarray(bi, np.int64)]
         loss_sum = torch.zeros(K, device=device)
         item_sum = torch.zeros(K, device=device)
         for k in range(bi.shape[1]):
+            d, rows = trials.take(bi[:, k])  # the members' rows of step k, [K, b]
+            idx_k = _index(rows, device)
             opt.zero_grad(set_to_none=True)
             if train_route == "fold":
                 # every member's rows lie on the one train graph: member 0's
@@ -247,14 +335,14 @@ def fit_ensemble(
                 member_loss = lambda p, bidx, w: _batch_loss(
                     fold_model, p, adj_fn, node_mask_fn, d, bidx, w, gids[0, k],
                     train=True, n_view=n_view)
-                losses, items = torch.func.vmap(member_loss)(params, idx_t[:, k], w_t[:, k])
+                losses, items = torch.func.vmap(member_loss)(params, idx_k, w_t[:, k])
                 losses.sum().backward()
             else:
                 losses, items = [], []
                 for j in range(K):
                     rng.manual_seed(fold_seed(epoch_seeds[j], k))
                     loss, it = _batch_loss(model, _member(params, j), adj_fn, node_mask_fn, d,
-                                           idx_t[j, k], w_t[j, k], gids[j, k], rng=rng,
+                                           idx_k[j], w_t[j, k], gids[j, k], rng=rng,
                                            train=True, n_view=n_view)
                     loss.backward()
                     losses.append(loss.detach())
@@ -276,7 +364,10 @@ def fit_ensemble(
 
     val_bi, val_bw = batches(val_idx, ebs, None)
     test_bi, test_bw = batches(test_idx, ebs, None)
-    test_idx_arr = np.asarray(test_idx, np.int32)
+    # the val and test rows, assembled once (a sharded store gathers them here)
+    d_val, val_bi = trials.take(val_bi)
+    d_test, test_bi = trials.take(test_bi)
+    d_trial, test_idx_arr = trials.take(np.asarray(test_idx, np.int32))
 
     best_val = np.full(K, np.inf)
     best_epoch = np.full(K, -1, np.int64)
@@ -325,7 +416,7 @@ def fit_ensemble(
         t0 = time.perf_counter()
         bi, bw = epoch_batches_stacked()
         train_l = train_epoch(bi, bw, epoch)
-        val_l = over_members(evaluate1, d, val_bi, val_bw).cpu().numpy()
+        val_l = over_members(evaluate1, d_val, val_bi, val_bw).cpu().numpy()
         epoch_times.append(time.perf_counter() - t0)
         train_l = train_l.cpu().numpy()
         history.append((epoch, train_l, val_l))
@@ -340,11 +431,11 @@ def fit_ensemble(
             imp = torch.as_tensor(improved, device=device)
             best_params = _select(imp, params, best_params)
             t1 = time.perf_counter()
-            test_all = over_members(evaluate1, d, test_bi, test_bw).cpu().numpy()
+            test_all = over_members(evaluate1, d_test, test_bi, test_bw).cpu().numpy()
             test_time = time.perf_counter() - t1
             test_loss = np.where(improved, test_all, test_loss)
             if per_trial1 is not None:
-                per_trial = over_members(per_trial1, d, test_idx_arr).cpu().numpy()
+                per_trial = over_members(per_trial1, d_trial, test_idx_arr).cpu().numpy()
                 if test_loss_all is None:
                     test_loss_all = np.full((K, len(test_idx)), np.nan)
                 test_loss_all = np.where(improved[:, None], per_trial, test_loss_all)
@@ -361,12 +452,53 @@ def fit_ensemble(
     if final_save_due(checkpoint_dir, epochs, start_epoch, checkpoint_every, ckpt_on_disk,
                       checkpoint_auto_s):
         save(epochs - 1)
-    return EnsembleFitResult(
+    result = EnsembleFitResult(
         params=tree_map(lambda t: t.detach(), params), opt_state=opt.state_dict(),
         best_epoch=best_epoch, best_val_loss=best_val, test_loss=test_loss,
         test_time=test_time, history=history, epoch_times=epoch_times,
         test_loss_all=test_loss_all, best_params=best_params,
         routes=(train_route, eval_route))
+    if mesh is not None:
+        from gn_ode_sir_tpu_torch.parallel.mesh import axis_group, mesh_device
+
+        result = _gather_members(result, axis_group(mesh, mesh_axis), mesh_device(mesh),
+                                 len(test_idx) if track_test_per_trial else None)
+    return result
+
+
+def _gather_members(res: EnsembleFitResult, group, device, n_test) -> EnsembleFitResult:
+    """Every process's members, all-gathered over ``group`` in member order:
+    the whole K-member result on every process."""
+
+    def cat(x, dim=0):
+        t = torch.as_tensor(x).to(device).contiguous()
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t, group=group)
+        out = torch.cat(parts, dim=dim)
+        return out if isinstance(x, torch.Tensor) else out.cpu().numpy()
+
+    stacked = lambda tree: tree_map(lambda t: cat(t).to(t.device), tree)
+    history = res.history
+    if history:
+        train = cat(np.stack([h[1] for h in history]), dim=1)
+        val = cat(np.stack([h[2] for h in history]), dim=1)
+        history = [(h[0], train[e], val[e]) for e, h in enumerate(history)]
+    opt_state = dict(res.opt_state)
+    opt_state["state"] = {i: {k: cat(v).to(v.device) if v.dim() else v
+                              for k, v in st.items()}
+                          for i, st in res.opt_state["state"].items()}
+    test_loss_all = None
+    if n_test is not None:
+        local = (np.full((len(res.best_epoch), n_test), np.nan) if res.test_loss_all is None
+                 else np.asarray(res.test_loss_all))
+        test_loss_all = cat(local)
+        if np.isnan(test_loss_all).all():  # no member improved anywhere
+            test_loss_all = None
+    return dataclasses.replace(
+        res, params=stacked(res.params), best_params=stacked(res.best_params),
+        opt_state=opt_state, best_epoch=cat(res.best_epoch),
+        best_val_loss=cat(res.best_val_loss), test_loss=cat(res.test_loss),
+        history=history, test_loss_all=test_loss_all)
 
 
 def _select(mask, new, old):

@@ -18,14 +18,14 @@ keeps connectivity arrays out of a compiled program, has no counterpart:
 the providers close over their device tensors.
 
 Periodic checkpoints of the whole training state (``checkpoint_dir``,
-``checkpoint_every``, the auto cadence of ``checkpoint_auto_s``) and
-exact-trace resume (``resume``) follow the JAX package. Not ported yet:
-``profile_dir`` (ROADMAP.md Queue 1 item 16, utils/profiling.py), which
-raises ``NotImplementedError``.
+``checkpoint_every``, the auto cadence of ``checkpoint_auto_s``),
+exact-trace resume (``resume``) and the profiler trace of a range of epochs
+(``profile_dir``, ``profile_epochs``) follow the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -39,6 +39,7 @@ from gn_ode_sir_tpu_torch.train.checkpoint import (checkpoint_path, restore_chec
                                                    save_checkpoint, tree_leaves, tree_map)
 from gn_ode_sir_tpu_torch.train.data import TrialData, epoch_batches, epoch_batches_grouped
 from gn_ode_sir_tpu_torch.train.loss import l1_sir_loss
+from gn_ode_sir_tpu_torch.utils.profiling import trace
 
 
 def _data_to_device(data: TrialData, device) -> dict:
@@ -233,6 +234,7 @@ def fit(
     log_every: int = 50,
     metrics_logger=None,
     profile_dir: str | None = None,
+    profile_epochs: tuple = (2, 4),
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 0,
     checkpoint_auto_s: float = 0.0,
@@ -266,10 +268,12 @@ def fit(
     exists and fast-forwards the shuffle so that the resumed run repeats the
     uninterrupted run's trace exactly. The end of the run saves too, unless
     the auto cadence alone armed the directory and found the run short.
+
+    ``profile_dir``: epochs ``profile_epochs[0]`` through
+    ``profile_epochs[1]`` run under :func:`~gn_ode_sir_tpu_torch.utils.trace`,
+    which writes their trace into the directory when the range ends (or the
+    run does).
     """
-    if profile_dir is not None:
-        raise NotImplementedError(
-            "profile_dir is not ported yet (ROADMAP.md Queue 1 item 16: utils/profiling.py)")
 
     # an adj_fn that reads ONE plan per minibatch declares it: run with
     # mixed-graph batches it would apply the wrong connectivity to most trials
@@ -376,7 +380,10 @@ def fit(
                                       else np.asarray(test_loss_all))
         save_checkpoint(checkpoint_dir, state)
 
+    profiler = contextlib.ExitStack()
     for epoch in range(start_epoch, epochs):
+        if profile_dir is not None and epoch == profile_epochs[0]:
+            profiler.enter_context(trace(profile_dir))
         t0 = time.perf_counter()
         bi, bw = batches(train_idx, batch_size, rng)
         train_loss = train_epoch(params, d, bi, bw, fold_seed(seed + 1, epoch))
@@ -384,6 +391,8 @@ def fit(
         epoch_times.append(time.perf_counter() - t0)
         train_loss = float(train_loss)
         history.append((epoch, train_loss, val_loss))
+        if epoch >= profile_epochs[1]:
+            profiler.close()
         if metrics_logger is not None:
             metrics_logger.log(epoch=epoch, train_loss=train_loss, val_loss=val_loss,
                                epoch_s=epoch_times[-1])
@@ -406,6 +415,7 @@ def fit(
         if checkpoint_dir and checkpoint_every and (epoch + 1) % checkpoint_every == 0:
             save(epoch)
 
+    profiler.close()
     if final_save_due(checkpoint_dir, epochs, start_epoch, checkpoint_every, ckpt_on_disk,
                       checkpoint_auto_s):
         save(epochs - 1)

@@ -1,6 +1,6 @@
 """Cross-cutting utilities (port of ``gn_ode_sir_tpu.utils``): config, label
-cache, CSV metrics sink. Timing, profiling and roofline helpers are not
-ported yet (ROADMAP.md Queue 1)."""
+cache, CSV metrics sink, timing, tracing and metrics logging; the roofline
+models are in ``utils.roofline``."""
 
 from gn_ode_sir_tpu_torch.utils.config import ExperimentConfig
 from gn_ode_sir_tpu_torch.utils.csvsink import csv_trials, save_trial_to_csv
@@ -10,8 +10,13 @@ from gn_ode_sir_tpu_torch.utils.labels import (
     load_or_extract_labels,
     load_or_extract_labels_many,
 )
+from gn_ode_sir_tpu_torch.utils.profiling import MetricsLogger, device_memory_stats, trace
+from gn_ode_sir_tpu_torch.utils.timing import Timer
 
 __all__ = [
+    "MetricsLogger",
+    "device_memory_stats",
+    "trace",
     "ExperimentConfig",
     "label_paths",
     "load_labels",
@@ -19,4 +24,5 @@ __all__ = [
     "load_or_extract_labels_many",
     "csv_trials",
     "save_trial_to_csv",
+    "Timer",
 ]

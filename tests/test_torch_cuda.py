@@ -383,3 +383,63 @@ def test_backsolve_step_on_card_matches_direct(cuda_device):
             continue
         got = out["backsolve"][1][path]
         assert float((got - want).abs().max()) <= 2e-3 * float(want.abs().max()), path
+
+
+def _halves(g):
+    """The two blocks of the dst-sorted edge list, as the edge axis of a
+    2-process mesh cuts it (a hub row straddles the cut)."""
+    cut = g.n_edges // 2
+    return [Graph(n_nodes=g.n_nodes, src=g.src[sl], dst=g.dst[sl], name=f"{g.name}_{k}")
+            for k, sl in enumerate((slice(0, cut), slice(cut, None)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [0, 1])
+def test_spmm2_on_an_edge_shard(cuda_device, half):
+    """K1 and K1-bwd on one half of the edge list: the plan's rows without an
+    edge in this half (most rows of a shard) come out as exact zeros, each
+    half equals its plain version, and the halves sum to the full plan's
+    output within 1e-5."""
+    g = _graph()
+    parts = _halves(g)
+    rng = np.random.default_rng(half)
+    x = torch.as_tensor(rng.standard_normal((3, g.n_nodes, 64), np.float32), device=cuda_device)
+    gout = torch.as_tensor(rng.standard_normal(x.shape, np.float32), device=cuda_device)
+    outs, grads = [], []
+    for part in parts:
+        adj = Spmm2Adj.from_graph(part, device=cuda_device)
+        xg = x.clone().requires_grad_(True)
+        y = adj.matvec(xg)
+        (dx,) = torch.autograd.grad(y, xg, gout)
+        outs.append(y.detach())
+        grads.append(dx)
+    adj = Spmm2Adj.from_graph(parts[half], device=cuda_device)
+    np.testing.assert_allclose(outs[half].cpu().numpy(), spmm2_plain(adj.plan, x).cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(grads[half].cpu().numpy(),
+                               spmm2_plain(adj.plan_t, gout).cpu().numpy(), rtol=RTOL, atol=ATOL)
+    empty = np.setdiff1d(np.arange(g.n_nodes), parts[half].dst)
+    assert empty.size and not outs[half][:, empty].any()
+    full = Spmm2Adj.from_graph(g, device=cuda_device)
+    np.testing.assert_allclose((outs[0] + outs[1]).cpu().numpy(),
+                               spmm2(full.plan, x).cpu().numpy(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose((grads[0] + grads[1]).cpu().numpy(),
+                               spmm2(full.plan_t, gout).cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_ell_adjacency_on_card_matches_k1(cuda_device):
+    """The bucketed-ELL gathers (plain torch) against K1 on the same graph,
+    forward and gradient, within 1e-5."""
+    g = _graph()
+    ell = adjacency_from_graph(g, kind="ell", device=cuda_device)
+    k1 = adjacency_from_graph(g, kind="pallas2", device=cuda_device)
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.standard_normal((4, g.n_nodes, 64), np.float32),
+                        device=cuda_device).requires_grad_(True)
+    gout = torch.as_tensor(rng.standard_normal(x.shape, np.float32), device=cuda_device)
+    (dx_ell,) = torch.autograd.grad(ell.matvec(x), x, gout)
+    (dx_k1,) = torch.autograd.grad(k1.matvec(x), x, gout)
+    np.testing.assert_allclose(ell.matvec(x).detach().cpu().numpy(),
+                               k1.matvec(x).detach().cpu().numpy(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(dx_ell.cpu().numpy(), dx_k1.cpu().numpy(), rtol=RTOL, atol=ATOL)

@@ -156,7 +156,7 @@ def test_fit_metrics_logger_and_unported_arguments(random_graph, tmp_path):
     assert res.history[1][1] == rec.rows[1]["train_loss"]
     assert "state" in res.opt_state
     # the four checkpoint keywords save and resume (the exact trace is held in
-    # test_torch_resume.py); profile_dir is still refused, naming item 16
+    # test_torch_resume.py); profile_dir traces its epoch range
     state = tmp_path / "state.pt"
     fit(model, opt, params, data, *SPLITS, lambda gi: adj, epochs=1, verbose=False,
         checkpoint_dir=str(tmp_path), checkpoint_auto_s=600.0)  # auto alone: a short run
@@ -168,6 +168,6 @@ def test_fit_metrics_logger_and_unported_arguments(random_graph, tmp_path):
                checkpoint_dir=str(tmp_path), checkpoint_every=2, resume=True)
     assert [h[0] for h in more.history] == [1, 2]
     assert torch.load(state, weights_only=True)["epoch"] == 2
-    with pytest.raises(NotImplementedError, match="item 16"):
-        fit(model, opt, params, data, *SPLITS, lambda gi: adj, epochs=1,
-            profile_dir=str(tmp_path))
+    fit(model, opt, params, data, *SPLITS, lambda gi: adj, epochs=1,
+        profile_dir=str(tmp_path / "prof"), profile_epochs=(0, 0))
+    assert list((tmp_path / "prof").glob("*.pt.trace.json"))

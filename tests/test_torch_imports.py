@@ -1,10 +1,13 @@
 """The port stands alone: importing every module of gn_ode_sir_tpu_torch,
 chip_smoke.py and the port's profiling scripts pulls in no JAX, nothing of
 gn_ode_sir_tpu, and no networkx or pandas (absent on the machine with the
-card); and chip_smoke.py refuses to run,
+card); every public name of the JAX package's subpackages exists in the
+port's; and chip_smoke.py refuses to run,
 printing no result, without a card or without the rest of the repository.
 """
 
+import ast
+import importlib
 import json
 import os
 import shutil
@@ -26,7 +29,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 sys.path.insert(0, "scripts")
-import torch_baselines_profile, torch_serve_profile, torch_spmm2_tune, torch_train_profile
+import torch_baselines_profile, torch_parallel_check, torch_serve_profile, torch_spmm2_tune
+import torch_train_profile
 print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
 """
 
@@ -58,8 +62,50 @@ def test_every_module_imports(probe):
                 "gn_ode_sir_tpu_torch.train.multigraph",
                 "gn_ode_sir_tpu_torch.odeint.adjoint", "gn_ode_sir_tpu_torch.odeint.dopri",
                 "gn_ode_sir_tpu_torch.train.ensemble", "gn_ode_sir_tpu_torch.train.node_split",
-                "gn_ode_sir_tpu_torch.cli.monitorer"}
+                "gn_ode_sir_tpu_torch.cli.monitorer",
+                "gn_ode_sir_tpu_torch.utils.timing", "gn_ode_sir_tpu_torch.utils.profiling",
+                "gn_ode_sir_tpu_torch.utils.roofline", "gn_ode_sir_tpu_torch.ops.ell",
+                "gn_ode_sir_tpu_torch.native", "gn_ode_sir_tpu_torch.parallel",
+                "gn_ode_sir_tpu_torch.parallel.distributed", "gn_ode_sir_tpu_torch.parallel.mesh",
+                "gn_ode_sir_tpu_torch.parallel.sim", "gn_ode_sir_tpu_torch.parallel.spmd"}
     assert expected <= set(probe["modules"])
+
+
+SUBPACKAGES = ("graphs", "models", "odeint", "ops", "parallel", "sim", "train", "utils")
+
+
+def _jax_all(sub: str) -> list:
+    """``__all__`` of ``gn_ode_sir_tpu/<sub>/__init__.py``, read from its
+    source (importing it would pull in JAX)."""
+    with open(os.path.join(REPO, "gn_ode_sir_tpu", sub, "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return list(ast.literal_eval(node.value))
+    raise AssertionError(f"gn_ode_sir_tpu/{sub}/__init__.py has no __all__")
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_every_public_name_of_the_jax_subpackage_exists(sub):
+    port = importlib.import_module(f"gn_ode_sir_tpu_torch.{sub}")
+    names = _jax_all(sub)
+    assert names
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, f"gn_ode_sir_tpu_torch.{sub} lacks {missing}"
+    assert set(names) <= set(port.__all__)
+
+
+@pytest.mark.parametrize("module,name", [
+    ("gn_ode_sir_tpu_torch.odeint.resample", "resample_expected_counts"),
+    ("gn_ode_sir_tpu_torch.odeint", "resample_expected_counts"),
+    ("gn_ode_sir_tpu_torch.ops.spmm", "spmm"),
+    ("gn_ode_sir_tpu_torch.ops", "spmm"),
+    ("gn_ode_sir_tpu_torch.graphs.load", "GRAPH_STEM"),
+    ("gn_ode_sir_tpu_torch.graphs", "GRAPH_STEM"),
+])
+def test_names_of_ported_modules(module, name):
+    assert hasattr(importlib.import_module(module), name)
 
 
 @pytest.mark.parametrize("forbidden", ["jax", "jaxlib", "gn_ode_sir_tpu", "optax",

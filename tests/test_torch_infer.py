@@ -165,15 +165,23 @@ def test_device_cuda_raises_without_card(served):
         worker.resolve_device("cuda")
 
 
-def test_spmd_not_ported(served):
+def test_spmd_not_ported(served, tmp_path, capsys):
+    """--spmd in a single process (no group) takes the plain path, as the
+    JAX package does on one device: the same output bit for bit. Its split
+    over a 2-process group is held in tests/test_torch_parallel.py."""
     ckpt, _ = served
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        infer.main(_common(ckpt, "--spmd"))
+    outs = {flag: str(tmp_path / f"p{flag}.npz") for flag in ("", "--spmd")}
+    for flag, path in outs.items():
+        assert infer.main(_common(ckpt, *([flag] if flag else []), "--out", path)) == 0
+    capsys.readouterr()
+    one, spmd = np.load(outs[""], allow_pickle=True), np.load(outs["--spmd"], allow_pickle=True)
+    for k in ("S", "I", "R"):
+        np.testing.assert_array_equal(one[k], spmd[k])
 
 
 def test_unported_models_raise():
-    """GCN and GIN build now; what is still unported (the ell adjacency)
-    raises naming its item, and a closed-form baseline is no trainable model."""
+    """GCN and GIN build, so does the ell adjacency (the last kind ported),
+    and a closed-form baseline is no trainable model."""
     for name in ("GCN", "GIN"):
         args = worker.build_parser().parse_args(["--model", name, "--hidden", "6", "--device", "cpu"])
         model = worker.build_model(args, 10)
@@ -184,9 +192,10 @@ def test_unported_models_raise():
                 model.gnn.input_dim, model.gnn.dropout) == (
             want.gnn.hidden_dim, want.gnn.penultimate_dim, want.gnn.window,
             want.gnn.input_dim, want.gnn.dropout)
+    from gn_ode_sir_tpu_torch.ops.ell import EllAdj
+
     args = worker.build_parser().parse_args(["--spmm", "ell", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        worker.build_model_and_adj(args, load_graph("none"))
+    assert isinstance(worker.build_model_and_adj(args, load_graph("none"))[1], EllAdj)
     args = worker.build_parser().parse_args(["--model", "dmp", "--device", "cpu"])
     with pytest.raises(ValueError, match="trainable"):
         worker.build_model(args, 10)

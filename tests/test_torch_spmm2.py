@@ -218,8 +218,9 @@ def test_auto_picks_dense_then_k1_on_any_device():
     big = Graph(n_nodes=DENSE_NODE_THRESHOLD + 1, src=np.array([1, 0]), dst=np.array([0, 1]))
     adj = adjacency_from_graph(big, device="cpu")
     assert isinstance(adj, Spmm2Adj) and adj.precision == "f32"
-    with pytest.raises(NotImplementedError, match="ell"):
-        adjacency_from_graph(tiny, kind="ell", device="cpu")
+    from gn_ode_sir_tpu_torch.ops.ell import EllAdj
+
+    assert isinstance(adjacency_from_graph(tiny, kind="ell", device="cpu"), EllAdj)
     with pytest.raises(ValueError):
         adjacency_from_graph(tiny, kind="pallas3", device="cpu")
 
