@@ -1803,10 +1803,12 @@ def best_ms(fn, repeats: int = 3) -> float:
 
 def phase_native(graph) -> dict:
     """The native graph core (``native/graphcore.cc``, built with g++ at
-    first use) must load on this machine; graph construction (coalescing the
-    undirected pairs), K1's plan build and DMP's reverse-edge index with the
-    library must equal the numpy path, element for element, at enron size;
-    the host ms of both."""
+    first use) must load on this machine; at enron size, graph construction
+    (coalescing the undirected pairs, the one call site the port gives it)
+    with the library must equal the numpy path, and the library's CSR
+    offsets and reverse-edge index must equal the numpy code that K1's plan
+    and DMP's ``cave_index`` run, element for element; the host ms of
+    both."""
     from gn_ode_sir_tpu_torch import native
     from gn_ode_sir_tpu_torch.models.dmp import cave_index
 
@@ -1817,29 +1819,34 @@ def phase_native(graph) -> dict:
     keep = graph.src < graph.dst
     pairs = np.stack([graph.src[keep], graph.dst[keep]], axis=1)
     pairs = pairs[np.random.default_rng([SEED, 8]).permutation(len(pairs))]
-    calls = {
-        "coalesce": lambda: graph_from_edges(graph.n_nodes, pairs),
-        "csr_plan": lambda: CsrPlan.build(graph.src, graph.dst, graph.n_nodes, device="cpu"),
-        "reverse_edge_index": lambda: cave_index(graph.src, graph.dst),
+
+    def numpy_offsets():
+        row_ptr = np.zeros(graph.n_nodes + 1, np.int64)
+        np.cumsum(np.bincount(graph.dst, minlength=graph.n_nodes), out=row_ptr[1:])
+        return row_ptr
+
+    calls = {  # name: (with the library, numpy)
+        "coalesce": (lambda: graph_from_edges(graph.n_nodes, pairs), None),
+        "csr_offsets": (lambda: native.csr_offsets(graph.dst, graph.n_nodes), numpy_offsets),
+        "reverse_edge_index": (
+            lambda: native.reverse_edge_index(graph.src, graph.dst, graph.n_nodes),
+            lambda: cave_index(graph.src, graph.dst)),
     }
     out, ms = {}, {}
-    for switch in ("native", "numpy"):
-        if switch == "numpy":
+    for name, (lib, plain) in calls.items():
+        out[name, "native"], ms[f"{name}_native_ms"] = lib(), best_ms(lib)
+        if plain is None:  # the call site's own numpy fallback
             os.environ["GN_ODE_SIR_NO_NATIVE"] = "1"
+            plain = lib
         try:
-            for name, fn in calls.items():
-                out[name, switch] = fn()
-                ms[f"{name}_{switch}_ms"] = best_ms(fn)
+            out[name, "numpy"], ms[f"{name}_numpy_ms"] = plain(), best_ms(plain)
         finally:
             os.environ.pop("GN_ODE_SIR_NO_NATIVE", None)
     g_lib, g_np = out["coalesce", "native"], out["coalesce", "numpy"]
-    plans = out["csr_plan", "native"], out["csr_plan", "numpy"]
-    fields = ("row_ptr", "src", "dst", "w", "edge_item", "item_row", "work", "fix_row", "fix_ptr")
     if not (np.array_equal(g_lib.src, g_np.src) and np.array_equal(g_lib.dst, g_np.dst)
             and np.array_equal(g_lib.src, graph.src) and np.array_equal(g_lib.dst, graph.dst)
-            and all(torch.equal(getattr(plans[0], f), getattr(plans[1], f)) for f in fields)
-            and np.array_equal(out["reverse_edge_index", "native"],
-                               out["reverse_edge_index", "numpy"])):
+            and all(np.array_equal(out[k, "native"], out[k, "numpy"])
+                    for k in ("csr_offsets", "reverse_edge_index"))):
         raise AssertionError("the native graph core disagrees with the numpy path")
     row = {"phase": "native", "n": graph.n_nodes, "edges": graph.n_edges,
            "undirected_pairs": len(pairs), "library": str(native.library_path().name),
@@ -1902,12 +1909,18 @@ def phase_parallel(graph, trials, root, save_dir) -> dict:
     K1) against the single-device step, (b) ``make_spmd_train_step_2d`` on a
     (1, 1) data x edge mesh through ``EdgeShardedCooAdj`` against (a), both
     one SGD step at lr 1 so that the leaf update is the gradient; (c)
-    ``simulate_sir_sharded`` (K2) at the label path's size; (d) ``cli.infer
-    --spmd`` against the same run without the flag, bit for bit, and the
-    sharded dispatch (``make_spmd_predict_fn`` with its all-gather) against
-    the plain one; (e) ``fit_ensemble(mesh=)`` over a member group of size
-    1, and with ``data_axis`` on a (1, 1) mesh, against the run without a
-    mesh."""
+    ``simulate_sir_sharded`` (K2) at the label path's size; (d) the sharded
+    dispatch of ``cli.infer --spmd`` (``make_spmd_predict_fn`` with its
+    all-gather) against the plain one, and the CLI with the flag against
+    the CLI without (at world size 1 the CLI takes the plain path, as the
+    JAX package's does: that pair holds only the fallback); (e)
+    ``fit_ensemble(mesh=)`` over a member group of size 1, and with
+    ``data_axis`` on a (1, 1) mesh, against the run without a mesh.
+
+    Each piece's launches are counted on their own (every count set to 0
+    just before the piece's parallel path and read just after; the
+    references it is held against run outside that window), and each piece
+    must have launched the kernels its path runs."""
     import torch.distributed as dist
 
     from gn_ode_sir_tpu_torch import parallel
@@ -1931,9 +1944,21 @@ def phase_parallel(graph, trials, root, save_dir) -> dict:
     batch = _trial_batch(data, 0)
     on = lambda k: torch.as_tensor(batch[k], device="cuda")
     out = {"phase": "parallel", "world_size": 1, "backend": "nccl", "setup_s": setup_s}
+    launches = {}
 
-    torch.cuda.synchronize()
-    spmm2.launches = spmm2.backward_launches = sir_step.launches = 0  # the paths start here
+    def counted(piece, fn, *kernels):
+        """``fn()`` with every launch count set to 0 just before it and read
+        just after it; every kernel named must have been launched."""
+        torch.cuda.synchronize()
+        spmm2.launches = spmm2.backward_launches = sir_step.launches = 0
+        result = fn()
+        torch.cuda.synchronize()
+        n = {"k1": spmm2.launches - spmm2.backward_launches,
+             "k1_backward": spmm2.backward_launches, "k2": sir_step.launches}
+        if any(n[k] == 0 for k in kernels):
+            raise AssertionError(f"{piece} did not go through {kernels}: launches {n}")
+        launches[piece] = n
+        return result
 
     def single(p, opt):
         loss = l1_sir_loss(model.predict(p, adj, *(on(k) for k in ("s0", "i0", "r0", "beta",
@@ -1945,29 +1970,39 @@ def phase_parallel(graph, trials, root, save_dir) -> dict:
 
     want = _sgd_update(params, single)
     step_a = parallel.make_spmd_train_step(model, lambda gi: adj, mesh)
-    got_a = _sgd_update(params, lambda p, opt: step_a(p, opt, batch))
+    got_a = counted("a", lambda: _sgd_update(params, lambda p, opt: step_a(p, opt, batch)),
+                    "k1", "k1_backward")
     out["a_train_step"] = _held_update("(a) make_spmd_train_step", got_a, want)
     t0 = time.perf_counter()
     step_b = parallel.make_spmd_train_step_2d(model, mesh_2d, graph.n_nodes)
     ones = np.ones(graph.n_edges, np.float32)
-    got_b = _sgd_update(params, lambda p, opt: step_b(p, opt, batch, graph.src, graph.dst, ones))
+    got_b = counted("b", lambda: _sgd_update(
+        params, lambda p, opt: step_b(p, opt, batch, graph.src, graph.dst, ones)),
+        "k1", "k1_backward")
     out["b_train_step_2d"] = {**_held_update("(b) make_spmd_train_step_2d", got_b, got_a),
                               "seconds_with_plan_build": time.perf_counter() - t0}
 
-    k2_before = sir_step.launches
     t0 = time.perf_counter()
     nodes, beta, gamma = trials[0]
-    s, i, r = parallel.simulate_sir_sharded(graph, nodes, beta, gamma, mesh=mesh,
-                                            sims=LABEL_SIMS, max_time=MAX_TIME, key=1000)
+    s, i, r = counted("c", lambda: parallel.simulate_sir_sharded(
+        graph, nodes, beta, gamma, mesh=mesh, sims=LABEL_SIMS, max_time=MAX_TIME, key=1000),
+        "k2")
     sim_s = time.perf_counter() - t0
     if (s.shape != (MAX_TIME, graph.n_nodes) or np.abs(s + i + r - 1.0).max() > 1e-9
             or (np.diff(r, axis=0) < 0).any() or r[-1].mean() <= 0.0):
         raise AssertionError("(c) simulate_sir_sharded: S + I + R != 1, R not monotone, or "
                              "no spread")
     out["c_simulate_sir_sharded"] = {"sims": LABEL_SIMS, "seconds": sim_s,
-                                     "k2_launches": sir_step.launches - k2_before,
                                      "final_recovered_mean": float(r[-1].mean())}
 
+    sb = infer.scenario_batch(graph.n_nodes, [t[0] for t in trials], [t[1] for t in trials],
+                              [t[2] for t in trials])
+    p_card = tree_map(lambda t: t.to("cuda"), params)
+    plain = infer._dispatch(model, p_card, adj, sb, reduce_fn=infer._summary_reduce)
+    sharded = counted("d", lambda: infer._spmd_dispatch(model, p_card, adj, sb, summary=True),
+                      "k1")
+    if not np.array_equal(sharded, plain):
+        raise AssertionError("(d) the sharded summary dispatch differs from the plain one")
     serve_dir = os.path.join(root, "serve_spmd")
     os.makedirs(serve_dir)
     dataset = os.path.join(serve_dir, graph.name)
@@ -1985,15 +2020,9 @@ def phase_parallel(graph, trials, root, save_dir) -> dict:
     plain_out, spmd_out = np.load(npz[""]), np.load(npz["--spmd"])
     if not all(np.array_equal(plain_out[k], spmd_out[k]) for k in ("S", "I", "R")):
         raise AssertionError("(d) cli.infer --spmd differs from the run without the flag")
-    sb = infer.scenario_batch(graph.n_nodes, [t[0] for t in trials], [t[1] for t in trials],
-                              [t[2] for t in trials])
-    p_card = tree_map(lambda t: t.to("cuda"), params)
-    sharded = infer._spmd_dispatch(model, p_card, adj, sb, summary=True)
-    plain = infer._dispatch(model, p_card, adj, sb, reduce_fn=infer._summary_reduce)
-    if not np.array_equal(sharded, plain):
-        raise AssertionError("(d) the sharded summary dispatch differs from the plain one")
-    out["d_infer_spmd"] = {"scenarios_npz": 2, "npz_bit_equal": True,
-                           "summary_scenarios": len(trials), "sharded_dispatch_bit_equal": True}
+    out["d_infer_spmd"] = {"summary_scenarios": len(trials), "sharded_dispatch_bit_equal": True,
+                           "cli_size1_fallback_scenarios": 2,
+                           "cli_size1_fallback_bit_equal": True}
 
     ens_model = dataclasses.replace(model, hidden=MG_HIDDEN)
     seeds = [0, 1]
@@ -2004,11 +2033,14 @@ def phase_parallel(graph, trials, root, save_dir) -> dict:
                      ("mesh_data_axis", {"mesh": parallel.make_mesh(
                          (1, 1), ("ensemble", "data"), device_type="cuda"),
                          "data_axis": "data"})):
+        def run(kw=kw):
+            return fit_ensemble(ens_model, lambda leaves: torch.optim.Adam(leaves, lr=1e-3),
+                                init_ensemble(ens_model, seeds, device="cuda"), data,
+                                [0, 1, 2], [3], [4, 5], lambda gi: adj, seeds=seeds, epochs=1,
+                                batch_size=1, verbose=False, **kw)
+
         t0 = time.perf_counter()
-        res = fit_ensemble(ens_model, lambda leaves: torch.optim.Adam(leaves, lr=1e-3),
-                           init_ensemble(ens_model, seeds, device="cuda"), data,
-                           [0, 1, 2], [3], [4, 5], lambda gi: adj, seeds=seeds, epochs=1,
-                           batch_size=1, verbose=False, **kw)
+        res = run() if name == "no_mesh" else counted(f"e_{name}", run, "k1", "k1_backward")
         runs[name] = (_ensemble_summary(res), time.perf_counter() - t0)
     errs = {name: _ensemble_err(runs[name][0], runs["no_mesh"][0])
             for name in ("mesh", "mesh_data_axis")}
@@ -2018,10 +2050,11 @@ def phase_parallel(graph, trials, root, save_dir) -> dict:
                                   "max_abs_err": errs,
                                   "seconds": {k: v[1] for k, v in runs.items()},
                                   "history": runs["mesh"][0]["history"]}
-    torch.cuda.synchronize()
-    out["k1_launches"] = spmm2.launches  # the paths end here
-    out["k1_backward_launches"] = spmm2.backward_launches
-    out["k2_launches"] = sir_step.launches
+    out["launches"] = launches  # by piece, each counted on its own
+    total = lambda k: sum(n[k] for n in launches.values())
+    out["k1_backward_launches"] = total("k1_backward")
+    out["k1_launches"] = total("k1") + total("k1_backward")  # as spmm2.launches counts
+    out["k2_launches"] = total("k2")
     out["tol"] = (f"loss {SPMD_LOSS_ATOL}, leaf update {SPMD_LEAF_RTOL} (max-norm), "
                   "serving bit for bit")
     infer._serving_mesh.cache_clear()

@@ -26,19 +26,11 @@ from gn_ode_sir_tpu_torch.ops.segment import segment_prod
 
 
 def cave_index(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
-    """Index of each directed edge's reverse edge; E (sentinel) if absent
-    (the native graph core where it is available, else numpy)."""
+    """Index of each directed edge's reverse edge; E (sentinel) if absent."""
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
     E = src.shape[0]
     n = int(max(src.max(initial=0), dst.max(initial=0))) + 1 if E else 1
-
-    from gn_ode_sir_tpu_torch import native
-
-    out = native.reverse_edge_index(src, dst, n)
-    if out is not None:
-        return out
-
     code = src * n + dst
     rev_code = dst * n + src
     order = np.argsort(code)

@@ -56,7 +56,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from gn_ode_sir_tpu_torch import native
 from gn_ode_sir_tpu_torch.ops import _kernels
 from gn_ode_sir_tpu_torch.ops.segment import segment_sum
 
@@ -143,11 +142,9 @@ class CsrPlan:
         if src.size >= 2**31:
             raise ValueError("more than 2^31 - 1 edges: int32 row_ptr overflows")
         w = np.ones(src.shape, np.float32) if w is None else np.asarray(w, np.float32)
-        row_ptr = native.csr_offsets(dst, n_nodes)
-        if row_ptr is None:
-            row_ptr = np.zeros(n_nodes + 1, np.int64)
-            np.cumsum(np.bincount(dst, minlength=n_nodes), out=row_ptr[1:])
-        counts = np.diff(row_ptr)
+        counts = np.bincount(dst, minlength=n_nodes)
+        row_ptr = np.zeros(n_nodes + 1, np.int64)
+        np.cumsum(counts, out=row_ptr[1:])
         work, fix_row, fix_ptr, edge_item, item_row = _work_list(
             counts, row_ptr, SEGMENT_EDGES)
         as_t = lambda a, dt: torch.as_tensor(a.astype(dt), device=device)

@@ -51,6 +51,7 @@ class _EdgeShardedSpmm(torch.autograd.Function):
     def forward(ctx, x, w, adj):
         ctx.adj = adj
         ctx.save_for_backward(x if w.requires_grad else None)
+        adj.sync_plans()
         y = adj.local_product(x.contiguous(), transpose=False)
         dist.all_reduce(y, group=adj.group)
         return y
@@ -87,22 +88,48 @@ class EdgeShardedCooAdj:
     n_nodes: int
     group: object = None
     plans: Spmm2Adj | None = None
+    perms: tuple | None = None  # block edge of each plan edge, (plan, plan_t)
+    _w_seen: list = dataclasses.field(default_factory=lambda: [None], compare=False,
+                                      repr=False)
 
     @staticmethod
     def from_local(src, dst, w, n_nodes: int, group=None, *, device) -> "EdgeShardedCooAdj":
         """The adjacency of one block. A shared [E_local] block gets its K1
         plan and transpose plan (built on the host from the block's edges in
         dst order, so zero-weight padding edges may sit anywhere). A ``w``
-        tensor that requires a gradient is kept as it is and gets one."""
+        tensor is kept as it is: the plans' copies of it follow its updates
+        in place (see :meth:`sync_plans`), and where it requires a gradient it
+        gets one. A numpy ``w`` is copied once, here."""
         s, d = _host(src), _host(dst)
-        w = torch.as_tensor(w, dtype=torch.float32, device=device)
-        plans = None
+        w = (w.to(device=device, dtype=torch.float32) if isinstance(w, torch.Tensor)
+             else torch.tensor(np.asarray(w, np.float32), device=device))
+        as_long = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
+        plans = perms = None
         if s.ndim == 1:
             order = np.argsort(d, kind="stable")
             plans = Spmm2Adj.from_edges(s[order], d[order], n_nodes, _host(w)[order],
                                         device=device)
-        as_long = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
-        return EdgeShardedCooAdj(as_long(s), as_long(d), w, int(n_nodes), group, plans)
+            # Spmm2Adj.from_edges orders the transpose plan by a stable src sort
+            perms = (as_long(order), as_long(order[np.argsort(s[order], kind="stable")]))
+        adj = EdgeShardedCooAdj(as_long(s), as_long(d), w, int(n_nodes), group, plans, perms)
+        adj._w_seen[0] = adj._w_version()
+        return adj
+
+    def _w_version(self):
+        # an inference tensor has no version counter: None, read at every apply
+        return None if self.w.is_inference() else (self.w.data_ptr(), self.w._version)
+
+    def sync_plans(self) -> None:
+        """Bring the plans' copies of ``w`` (each in its plan's edge order) up
+        to date where ``w`` has changed since they were written: every update
+        in place (an optimizer's step) bumps its version counter."""
+        seen = self._w_version()
+        if self.plans is None or (seen is not None and seen == self._w_seen[0]):
+            return
+        with torch.no_grad():
+            for plan, perm in zip((self.plans.plan, self.plans.plan_t), self.perms):
+                torch.index_select(self.w.detach(), 0, perm, out=plan.w)
+        self._w_seen[0] = seen
 
     def local_product(self, x: torch.Tensor, transpose: bool) -> torch.Tensor:
         """This block's (or its transpose's) share of A·x, not yet reduced."""
@@ -260,15 +287,19 @@ def make_spmd_train_step(model, adj_fn, mesh, axis: str = "data", aux_example=No
 
 class _BlockCache:
     """The last edge block's adjacency, rebuilt only when the step is handed
-    other edge arrays (plans are host work)."""
+    an edge list of other contents (plans are host work). It compares with
+    its own copy of the last list, so that a list changed in place between
+    two steps is seen."""
 
     def __init__(self):
-        self.key, self.arrays, self.adj = None, None, None
+        self.arrays, self.adj = None, None
 
     def get(self, arrays, build):
-        key = tuple(id(a) for a in arrays)
-        if key != self.key:
-            self.key, self.arrays, self.adj = key, arrays, build()
+        host = tuple(_host(a) for a in arrays)
+        if self.arrays is None or not all(np.array_equal(a, b)
+                                          for a, b in zip(host, self.arrays)):
+            self.arrays = tuple(np.array(a) for a in host)
+            self.adj = build(*self.arrays)
         return self.adj
 
 
@@ -283,13 +314,12 @@ def make_spmd_train_step_2d(model, mesh, n_nodes: int, data_axis: str = "data",
     device = mesh_device(mesh)
     cache = _BlockCache()
 
-    def connect(b, src, dst, w):
-        def build():
-            sl = local_block(len(src), mesh, edge_axis)
-            return EdgeShardedCooAdj.from_local(
-                _host(src)[sl], _host(dst)[sl], _host(w)[sl], n_nodes,
-                axis_group(mesh, edge_axis), device=device)
+    def build(src, dst, w):
+        sl = local_block(len(src), mesh, edge_axis)
+        return EdgeShardedCooAdj.from_local(src[sl], dst[sl], w[sl], n_nodes,
+                                            axis_group(mesh, edge_axis), device=device)
 
+    def connect(b, src, dst, w):
         return cache.get((src, dst, w), build), None
 
     return _build_spmd_step(model, mesh, data_axis, connect, dropout_rng)

@@ -79,10 +79,14 @@ def test_csr_offsets_equals_jax_and_fallback(graph):
 
 
 def test_csr_plan_equal_with_and_without_native(graph, monkeypatch):
+    """K1's plan builds its row pointer with numpy (the library is no faster
+    there): its row pointer equals the library's offsets, and the plan does
+    not depend on the switch."""
     from gn_ode_sir_tpu_torch.ops.spmm2 import CsrPlan
 
     w = np.random.default_rng(2).random(graph.n_edges).astype(np.float32)
     a = CsrPlan.build(graph.src, graph.dst, graph.n_nodes, w=w, device="cpu")
+    np.testing.assert_array_equal(a.row_ptr.numpy(), native.csr_offsets(graph.dst, graph.n_nodes))
     monkeypatch.setenv("GN_ODE_SIR_NO_NATIVE", "1")
     b = CsrPlan.build(graph.src, graph.dst, graph.n_nodes, w=w, device="cpu")
     for field in ("row_ptr", "src", "dst", "w", "edge_item", "item_row", "work", "fix_row",
@@ -96,9 +100,10 @@ def test_reverse_edge_index_equals_jax_and_fallback(graph, monkeypatch):
     got = native.reverse_edge_index(graph.src, graph.dst, graph.n_nodes)
     np.testing.assert_array_equal(
         got, jax_native.reverse_edge_index(graph.src, graph.dst, graph.n_nodes))
+    # DMP's cave_index is the numpy path (the library is slower there)
     np.testing.assert_array_equal(cave_index(graph.src, graph.dst), got)
     monkeypatch.setenv("GN_ODE_SIR_NO_NATIVE", "1")
-    np.testing.assert_array_equal(cave_index(graph.src, graph.dst), got)
+    assert native.reverse_edge_index(graph.src, graph.dst, graph.n_nodes) is None
     # the sentinel E where the reverse edge is missing
     np.testing.assert_array_equal(cave_index(np.array([0, 2]), np.array([1, 1])), [2, 2])
 

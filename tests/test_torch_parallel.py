@@ -317,6 +317,30 @@ def test_edge_sharded_spmm_equals_jax(groups):
     np.testing.assert_allclose(ranks[0]["edge_spmm"]["y"], a @ e["x"], atol=EDGE_TOL, rtol=0)
 
 
+def test_edge_sharded_follows_w_updated_in_place(groups):
+    """K1's plans hold their own copies of the block's weights: after an
+    optimizer step on ``w`` the same adjacency applies the new weights,
+    bit for bit as one built from them afresh, and the dense product."""
+    inputs, results = groups
+    e = inputs["edge"]
+    ranks = [r["edge_w_update"] for r in results[2]]
+    for r in ranks:
+        np.testing.assert_array_equal(r["after"], r["fresh"])
+        assert not np.allclose(r["after"], r["before"], atol=EDGE_TOL)
+    a = np.zeros((e["n"], e["n"]), np.float32)
+    np.add.at(a, (e["dst"], e["src"]), np.concatenate([r["w"] for r in ranks]))
+    np.testing.assert_allclose(ranks[0]["after"], a @ e["x"], atol=EDGE_TOL, rtol=0)
+
+
+def test_spmd_train_step_2d_sees_edges_changed_in_place(groups):
+    _, results = groups
+    got = _every_rank(results, 4, "step_2d_edges_changed")
+    assert got["again"]["loss"] == got["fresh"]["loss"] != got["first"]["loss"]
+    for a, b in zip(jax.tree_util.tree_leaves(got["again"]["params"]),
+                    jax.tree_util.tree_leaves(got["fresh"]["params"])):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_sharded_sim_means_agree_with_jax(groups, karate):
     _, results = groups
     got = _every_rank(results, 2, "sim")

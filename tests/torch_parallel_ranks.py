@@ -27,6 +27,7 @@ from gn_ode_sir_tpu_torch.models import GCN, GNODE, TimeUnrolledSIR  # noqa: E40
 from gn_ode_sir_tpu_torch.ops import gcn_norm_edges  # noqa: E402
 from gn_ode_sir_tpu_torch.ops.adjacency import CooAdj, adjacency_from_graph  # noqa: E402
 from gn_ode_sir_tpu_torch.parallel import (  # noqa: E402
+    EdgeShardedCooAdj,
     data_sharding,
     init_distributed,
     make_mesh,
@@ -142,6 +143,26 @@ def case_edge_spmm(I, mesh):
     return {"y": y.detach().numpy(), "dx": dx.numpy(), "dw": dw.numpy()}
 
 
+def case_edge_w_update(I, mesh):
+    """A learned ``w``: one SGD step on it, in place, between two applies of
+    the same block; the second apply must read the updated weights."""
+    e = I["edge"]
+    sl = slice(*e["blocks"][axis_index(mesh, "data")])
+    group = axis_group(mesh, "data")
+    x = torch.as_tensor(e["x"])
+    w = torch.as_tensor(e["w"][sl]).clone().requires_grad_(True)
+    adj = EdgeShardedCooAdj.from_local(e["src"][sl], e["dst"][sl], w, e["n"], group,
+                                       device="cpu")
+    before = adj.matvec(x)
+    (before * torch.as_tensor(e["g"])).sum().backward()
+    torch.optim.SGD([w], lr=0.5).step()
+    after = adj.matvec(x)
+    fresh = EdgeShardedCooAdj.from_local(e["src"][sl], e["dst"][sl], w.detach().clone(),
+                                         e["n"], group, device="cpu").matvec(x)
+    return {"before": before.detach().numpy(), "after": after.detach().numpy(),
+            "fresh": fresh.numpy(), "w": w.detach().numpy()}
+
+
 def case_sim(I, mesh):
     s, i, r = simulate_sir_sharded(graph(I["karate"]), [0], 0.3, 0.2, mesh=mesh, sims=8000,
                                    key=2)
@@ -202,6 +223,20 @@ def case_step_2d(I, mesh):
     return stepped(step, I["params"], I["batch50"], e["src"], e["dst"], e["w"])
 
 
+def case_step_2d_edges_changed(I, mesh):
+    """The 2-D step handed an edge list whose weights changed in place since
+    its last step: it must rebuild the block, as a new step would."""
+    e = I["edges50"]
+    n = I["g50"]["n"]
+    step = make_spmd_train_step_2d(gnode(I), mesh, n)
+    w = e["w"].copy()
+    first = stepped(step, I["params"], I["batch50"], e["src"], e["dst"], w)
+    w *= 0.5
+    return {"first": first, "again": stepped(step, I["params"], I["batch50"], e["src"], e["dst"], w),
+            "fresh": stepped(make_spmd_train_step_2d(gnode(I), mesh, n), I["params"],
+                             I["batch50"], e["src"], e["dst"], w)}
+
+
 def case_mg_step_2d(I, mesh):
     b = mg_batch(I, "mg3")
     aux = {"src": b.src, "dst": b.dst, "w": b.edge_w,
@@ -220,9 +255,10 @@ def case_ensemble_2d(I, mesh):
 
 CASES = {
     2: ((("data",), (2,)), [case_placements, case_step, case_dropout, case_mg_coo,
-                            case_mg_pallas2, case_edge_spmm, case_sim, case_predict,
-                            case_infer, case_ensemble]),
-    4: ((("data", "edge"), (2, 2)), [case_step_2d, case_mg_step_2d, case_ensemble_2d]),
+                            case_mg_pallas2, case_edge_spmm, case_edge_w_update, case_sim,
+                            case_predict, case_infer, case_ensemble]),
+    4: ((("data", "edge"), (2, 2)), [case_step_2d, case_step_2d_edges_changed,
+                                     case_mg_step_2d, case_ensemble_2d]),
 }
 
 
