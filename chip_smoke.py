@@ -132,6 +132,8 @@ MG_TRIALS_PER_GRAPH = 8  # the published run has 36 per train graph and 120 on e
 MG_SIMS = 1_000  # simulations per label (published: 10,000)
 MG_EPOCHS = 2
 MG_TRAIN_WIDTH = 7_168  # wiki-vote's 7,066 nodes rounded up to 128
+# K1's narrow route takes rows of x under 128 bytes (f32 h <= 31); 32 is past it
+NARROW_SWEEP_WIDTHS = (*range(1, 18), 24, 31, 32)
 WIKI, FB_SOCIAL, FB_FOOD = 4, 2, 1  # positions in MG_GRAPH_SIZES
 BASELINE_HIDDEN = 64
 DMP_ATOL = 1e-5  # DMP marginals, card vs CPU
@@ -324,8 +326,15 @@ def check_spmm2_case(name, graph, batch, h, precision, x_dtype, *, timed,
     if timed:
         row.update(spmm2_times(plan, x, precision,
                                precision == "f32" and x_dtype == torch.float32))
+        row.update(library_ratio(row))
     emit(row)
     return row
+
+
+def library_ratio(row) -> dict:
+    """The library call's device-alone time over K1's (above 1: K1 is faster)."""
+    lib = row.get("library_device_ms")
+    return {"library_over_kernel": lib / row["device_ms"] if lib else None}
 
 
 def multigraph_kernel_cases(mg_graphs):
@@ -373,9 +382,14 @@ def phase_kernel(graph, mg_graphs) -> tuple[dict, list]:
                      weighted=True)
     check_spmm2_case("star_b1_h64_bf16msg_bf16x", star, 1, 64, "bf16", bf16, timed=False,
                      weighted=True)
+    check_spmm2_case("star_b8_h8", star, 8, 8, "f32", f32, timed=False, weighted=True)
+    check_spmm2_case("star_transposed_b3_h5", star_t, 3, 5, "f32", f32, timed=False,
+                     weighted=True)
     rows = boundary_rows_graph()
     for batch, h, precision, x_dtype in ((3, 64, "f32", f32), (2, 64, "bf16", bf16),
-                                         (1, 33, "f32", f32), (2, 100, "f32", f32)):
+                                         (1, 33, "f32", f32), (2, 100, "f32", f32),
+                                         (8, 8, "f32", f32), (3, 5, "bf16", bf16),
+                                         (32, 8, "f32", f32)):
         check_spmm2_case(f"boundary_rows_b{batch}_h{h}_{precision}", rows, batch, h, precision,
                          x_dtype, timed=False, weighted=True)
     edgeless = Graph(n_nodes=1000, src=np.zeros(0, np.int32), dst=np.zeros(0, np.int32))
@@ -390,7 +404,20 @@ def phase_kernel(graph, mg_graphs) -> tuple[dict, list]:
     mg_rows.append(check_spmm2_case(f"matrix_fold_enron_eval_b{MATRIX_K * MG_BATCH}_h8",
                                     mg_graphs[-1], MATRIX_K * MG_BATCH, MG_HIDDEN, "f32", f32,
                                     timed=True))
+    # every width of the narrow route and the first past it, on the train plan
+    train = narrow_train_graph(mg_graphs)
+    for h in NARROW_SWEEP_WIDTHS:
+        check_spmm2_case(f"mg_wiki_train_b8_h{h}_f32", train, MG_BATCH, h, "f32", f32,
+                         timed=False, real_nodes=mg_graphs[WIKI].n_nodes)
+        check_spmm2_case(f"mg_wiki_train_b8_h{h}_bf16msg_bf16x", train, MG_BATCH, h, "bf16", bf16,
+                         timed=False, real_nodes=mg_graphs[WIKI].n_nodes)
     return main, mg_rows
+
+
+def narrow_train_graph(mg_graphs) -> Graph:
+    """The wiki-vote-size graph at the multi-graph train view's width."""
+    wiki = mg_graphs[WIKI]
+    return Graph(n_nodes=MG_TRAIN_WIDTH, src=wiki.src, dst=wiki.dst, name=wiki.name)
 
 
 def check_spmm2_bwd_case(name, graph, batch, precision, *, timed, weighted=False, w=None,
@@ -441,6 +468,7 @@ def check_spmm2_bwd_case(name, graph, batch, precision, *, timed, weighted=False
            **spmm2_bound(plan_t, g)}
     if timed:
         row.update(spmm2_times(plan_t, g, precision, precision == "f32"))
+        row.update(library_ratio(row))
     emit(row)
     return row
 
@@ -468,7 +496,25 @@ def phase_kernel_bwd(graph, mg_graphs) -> tuple[dict, list]:
     # the single-graph ensemble's training fold: four members at batch 1
     mg_rows.append(check_spmm2_bwd_case(f"bwd_matrix_fold_enron_b{MATRIX_K}", graph, MATRIX_K,
                                         "f32", timed=True))
+    # and the folded multi-graph evaluation's shape, [32, 33,696, 8]
+    mg_rows.append(check_spmm2_bwd_case(
+        f"bwd_matrix_fold_enron_eval_b{MATRIX_K * MG_BATCH}_h8", mg_graphs[-1],
+        MATRIX_K * MG_BATCH, "f32", timed=True, h=MG_HIDDEN))
+    check_spmm2_bwd_case("bwd_star_b8_h8", star, MG_BATCH, "f32", timed=False, weighted=True,
+                         h=MG_HIDDEN)
+    check_spmm2_bwd_case("bwd_boundary_rows_transposed_b3_h5", transposed(rows), 3, "f32",
+                         timed=False, weighted=True, h=5)
     return main, mg_rows  # batch 1 is the training path's shape
+
+
+def narrow_summary(rows) -> dict:
+    """K1 and K1-bwd at the narrow route's timed shapes beside the library
+    call, device alone."""
+    return {"phase": "narrow", "cases": [
+        {"kernel": r["kernel"], "case": r["case"], "device_ms": r["device_ms"],
+         "library_device_ms": r["library_device_ms"],
+         "library_over_kernel": r["library_over_kernel"]}
+        for r in rows if r["h"] * (2 if r.get("x_dtype") == "bfloat16" else 4) < 128]}
 
 
 def check_sir_step_case(name, i, r, counts, betas, gammas, sims, *, step=3, timed=False,
@@ -2168,6 +2214,7 @@ def main() -> int:
     k1, k1_mg = phase_kernel(graph, mg_graphs)
     k2 = phase_kernel_k2(graph, trials[:chunk])
     k1b, k1b_mg = phase_kernel_bwd(graph, mg_graphs)
+    emit(narrow_summary(k1_mg + k1b_mg))
     shard_fwd, shard_bwd = phase_kernel_shards(graph)
     phase_ell(graph)
     phase_native(graph)

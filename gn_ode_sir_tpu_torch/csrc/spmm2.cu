@@ -47,6 +47,47 @@
 //   scenarios are scheduled one after another, so that the x being gathered
 //   stays within the L2.
 //
+// Narrow rows. A row of x shorter than kNarrowRowBytes = 128 bytes (f32
+// h <= 31, bf16 h <= 63: every width below the 128-byte rows the design
+// above was built for; the multi-graph runs at hidden 8, GIN's first layer
+// at 5, the matrix's fold at [32, n, 8]) takes a route of its own. There the
+// design above leaves lanes idle (f32 h = 8: 2 of 8 lanes carry data; odd h:
+// 5 of 32) and walks a 64-edge item in 32 dependent steps. What bounds the
+// narrow route: each (edge, scenario) gathers one 4-124-byte row from the L2,
+// one or more 32-byte sector requests apart from every other. At [8, 7,168,
+// 8] (201,472 edges) that is 1.6M requests (52 MB) where the bytes the call
+// must move take 1.6 us at the HBM rate, at [32, 33,696, 8] (361,622 edges)
+// 11.6M (370 MB), so the time is the rate of those requests and the chain of
+// dependent loads of the longest item, plus the launch. What the design does
+// (measured with scripts/torch_spmm2_tune.py --narrow):
+// - Every lane carries data. A lane owns one (work item, scenario, column
+//   vector) with the widest load that divides the row (16, 8, 4 or 2 bytes,
+//   else scalars): f32 h = 8 is two float4 lanes per scenario, h = 5 five
+//   scalar lanes.
+// - The lanes of one item span the scenarios of a group (at most
+//   kNarrowTeamLanes lanes), so src, w and the work item are read once per
+//   group. A group gathers from at most kNarrowGroupBytes of x (a quarter of
+//   the L2) and groups run one after another: [8, n, 8] is one group of 8,
+//   [32, 33,696, 8] three of 11 (one group of 32 ran 1.35x slower: its x
+//   left the L2).
+// - kNarrowSteps = 4 row loads in flight per lane. Whole steps take no
+//   bounds checks, which holds a lane to 46 registers, so five blocks stay
+//   resident on an SM; 3, 6 or 8 steps gained at most 6% on one case and
+//   lost up to 20% on another.
+// - Long rows' partial sums are added by a second kernel with one lane per
+//   (scenario, long row, column vector). It is launched as a programmatic
+//   dependent of the segment kernel (PDL): it is scheduled and reads its
+//   indices while the segments run, and waits for their writes
+//   (griddepcontrol.wait) before it reads the partial sums. Folding it into
+//   the segment kernel would need per-row counters that outlive a launch.
+// What remains: the request rate. torch.sparse.mm, given x node-major,
+// reads an edge's rows of all scenarios as one contiguous run (1 KB at [32,
+// n, 8]), where x's [B, n, h] layout puts them 32 rows 1 MB apart; the
+// conversion to that layout is not in the library's time.
+// Each output element and partial slot is still summed by one thread in edge
+// order (slot order in the fixup): the narrow route gives the bits the
+// design above gives, and two launches the same bits.
+//
 // bf16 message precision reproduces the JAX rounding exactly:
 // message = bf16(bf16(x) * bf16(w)), summed in f32.
 
@@ -62,6 +103,16 @@ constexpr int kWarpsPerBlock = 4;
 constexpr int kStepsInFlight = 2;     // gather instructions issued before summing
 constexpr int kScenariosPerWarp = 2;  // scenarios that share one read of src and w
 constexpr int kMinBlocksPerSM = 8;    // blocks resident on an SM: caps registers at 64
+
+// the narrow route
+constexpr int kNarrowRowBytes = 128;   // rows of x shorter than this take the narrow route
+constexpr int kNarrowThreads = 256;    // threads of a block
+constexpr int kNarrowSteps = 4;        // row loads in flight per lane
+constexpr int kNarrowTeamLanes = 64;   // most lanes that share one work item
+constexpr int kNarrowMinBlocks = 4;    // blocks resident on an SM: caps registers at 64
+constexpr long long kNarrowGroupBytes = 12 << 20;  // most x one group of scenarios gathers from
+constexpr int kNarrowFixupOverlap = 1;  // launch the fixup while the segments run (PDL)
+constexpr int kNarrowFixupSteps = 8;    // partial sums in flight per lane of the fixup
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -127,6 +178,18 @@ struct RowPiece<__nv_bfloat16, 2> {
     return __ldg(reinterpret_cast<const unsigned*>(p));
   }
   static __device__ __forceinline__ void widen(const Raw& r, float* v) { widen_bf16x2(r, v); }
+};
+
+template <>
+struct RowPiece<__nv_bfloat16, 4> {
+  using Raw = uint2;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ void widen(const Raw& r, float* v) {
+    widen_bf16x2(r.x, v);
+    widen_bf16x2(r.y, v + 2);
+  }
 };
 
 template <>
@@ -284,6 +347,141 @@ spmm2_fixup_kernel(const float* __restrict__ partial, const int* __restrict__ fi
   }
 }
 
+// U edges of one lane of the narrow route, e0 .. e0 + U - 1 (WHOLE) or those
+// of them before `end`: the U row loads are issued before any is summed.
+template <typename T, bool BF16_MSG, int VEC, int U, bool WHOLE>
+__device__ __forceinline__ void narrow_step(const T* __restrict__ xb, const int* __restrict__ src,
+                                            const float* __restrict__ w, int e0, int end, int h,
+                                            float* acc) {
+  typename RowPiece<T, VEC>::Raw raw[U];
+  float wj[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (WHOLE || e0 + u < end) {
+      raw[u] = RowPiece<T, VEC>::load(xb + static_cast<long long>(__ldg(src + e0 + u)) * h);
+      wj[u] = __ldg(w + e0 + u);
+      if constexpr (BF16_MSG) wj[u] = round_bf16(wj[u]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (WHOLE || e0 + u < end) {
+      float v[VEC];
+      RowPiece<T, VEC>::widen(raw[u], v);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        // the message is rounded before the sum, as in the segment kernel
+        if constexpr (BF16_MSG) {
+          acc[k] += round_bf16(__fmul_rn(round_bf16(v[k]), wj[u]));
+        } else {
+          acc[k] += __fmul_rn(v[k], wj[u]);
+        }
+      }
+    }
+  }
+}
+
+// The narrow route: one lane per (work item, scenario, column vector of VEC
+// elements). Lanes are numbered group-major: the groups of `scen`
+// scenarios one after another, within a group a team of `team` = scen *
+// pieces lanes per item in list order, `pieces` = h / VEC lanes per
+// scenario. Each lane adds its item's messages in edge order, kNarrowSteps
+// rows in flight.
+template <typename T, bool BF16_MSG, int VEC>
+__global__ void __launch_bounds__(kNarrowThreads, kNarrowMinBlocks)
+spmm2_narrow_kernel(const T* __restrict__ x, const int4* __restrict__ work,
+                    const int* __restrict__ src, const float* __restrict__ w,
+                    float* __restrict__ out, float* __restrict__ partial, int n, int h,
+                    int batch, int n_work, int n_slots, int pieces, int scen,
+                    long long lanes_total) {
+  constexpr int U = kNarrowSteps;
+  // the fixup of this apply may be scheduled now: it waits for this grid's
+  // writes before it reads them (no-op when it was launched without PDL)
+  if constexpr (kNarrowFixupOverlap) asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const long long lane = static_cast<long long>(blockIdx.x) * kNarrowThreads + threadIdx.x;
+  if (lane >= lanes_total) return;
+  const int team = scen * pieces;
+  const long long pair = lane / team;  // (group, item)
+  const int r = static_cast<int>(lane - pair * team);
+  const int group = static_cast<int>(pair / n_work);
+  const int item = static_cast<int>(pair - static_cast<long long>(group) * n_work);
+  const int g = r / pieces;
+  const long long b = static_cast<long long>(group) * scen + g;
+  if (b >= batch) return;
+  const int c = (r - g * pieces) * VEC;
+  const int4 it = __ldg(work + item);
+  const int end = it.x + it.y;
+  const T* xb = x + b * n * h + c;
+  float* o = (it.w < 0 ? out + (b * n + it.z) * h : partial + (b * n_slots + it.w) * h) + c;
+
+  float acc[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  int e0 = it.x;
+  for (; e0 + U <= end; e0 += U) narrow_step<T, BF16_MSG, VEC, U, true>(xb, src, w, e0, end, h, acc);
+  if (e0 < end) narrow_step<T, BF16_MSG, VEC, U, false>(xb, src, w, e0, end, h, acc);
+  store_vec<VEC>(o, acc);
+}
+
+// The narrow route's fixup: one lane per (scenario, long row, column vector
+// of VEC elements) adds the row's partial sums in segment order. Launched
+// while the segment kernel still runs, it reads its indices, then waits for
+// that grid to finish (griddepcontrol.wait: the segment kernel's writes are
+// visible after it) and reads the partial sums from the L2.
+template <int VEC>
+__device__ __forceinline__ void load_partial(const float* p, float* v) {
+  if constexpr (VEC == 4) {
+    const float4 r = __ldcg(reinterpret_cast<const float4*>(p));
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+  } else if constexpr (VEC == 2) {
+    const float2 r = __ldcg(reinterpret_cast<const float2*>(p));
+    v[0] = r.x;
+    v[1] = r.y;
+  } else {
+    v[0] = __ldcg(p);
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kNarrowThreads)
+spmm2_narrow_fixup_kernel(const float* __restrict__ partial, const int* __restrict__ fix_row,
+                          const int* __restrict__ fix_ptr, float* __restrict__ out, int n,
+                          int h, int n_fix, int n_slots, int pieces, long long lanes_total) {
+  constexpr int U = kNarrowFixupSteps;
+  const long long lane = static_cast<long long>(blockIdx.x) * kNarrowThreads + threadIdx.x;
+  if (lane >= lanes_total) return;
+  const long long q = lane / pieces;  // (scenario, long row)
+  const int c = static_cast<int>(lane - q * pieces) * VEC;
+  const long long b = q / n_fix;
+  const int j = static_cast<int>(q - b * n_fix);
+  const int s0 = __ldg(fix_ptr + j);
+  const int s1 = __ldg(fix_ptr + j + 1);
+  float* o = out + (b * n + __ldg(fix_row + j)) * h + c;
+  const float* p = partial + b * n_slots * h + c;
+  if constexpr (kNarrowFixupOverlap) asm volatile("griddepcontrol.wait;" ::: "memory");
+  float acc[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  for (int s = s0; s < s1; s += U) {
+    float v[U][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s + u < s1) load_partial<VEC>(p + static_cast<long long>(s + u) * h, v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (s + u < s1) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] += v[u][k];
+      }
+    }
+  }
+  store_vec<VEC>(o, acc);
+}
+
 struct Args {
   const void* x;
   const void* work;
@@ -313,8 +511,83 @@ cudaError_t launch_segments(const Args& a) {
   return cudaGetLastError();
 }
 
+template <typename T, bool BF16_MSG, int VEC>
+cudaError_t launch_narrow_segments(const Args& a) {
+  // as many scenarios per item as kNarrowTeamLanes lanes hold, spread evenly
+  // over the fewest groups
+  const int pieces = a.h / VEC;
+  const long long plane = static_cast<long long>(a.n) * a.h * sizeof(T);  // one scenario's x
+  long long most = kNarrowTeamLanes / pieces;
+  if (kNarrowGroupBytes / plane < most) most = kNarrowGroupBytes / plane;
+  if (most < 1) most = 1;
+  const int groups = static_cast<int>((a.batch + most - 1) / most);
+  const int scen = (a.batch + groups - 1) / groups;
+  const long long lanes = static_cast<long long>(a.n_work) * groups * scen * pieces;
+  const long long blocks = (lanes + kNarrowThreads - 1) / kNarrowThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  spmm2_narrow_kernel<T, BF16_MSG, VEC>
+      <<<static_cast<unsigned>(blocks), kNarrowThreads, 0, a.stream>>>(
+          static_cast<const T*>(a.x), static_cast<const int4*>(a.work),
+          static_cast<const int*>(a.src), static_cast<const float*>(a.w),
+          static_cast<float*>(a.out), static_cast<float*>(a.partial), a.n, a.h, a.batch,
+          a.n_work, a.n_slots, pieces, scen, lanes);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t launch_narrow_fixup(const Args& a) {
+  const int pieces = a.h / VEC;
+  const long long lanes = static_cast<long long>(a.n_fix) * a.batch * pieces;
+  const long long blocks = (lanes + kNarrowThreads - 1) / kNarrowThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  cudaLaunchAttribute overlap;
+  overlap.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  overlap.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kNarrowThreads);
+  cfg.stream = a.stream;
+  cfg.attrs = &overlap;
+  cfg.numAttrs = kNarrowFixupOverlap ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, spmm2_narrow_fixup_kernel<VEC>,
+                            static_cast<const float*>(a.partial),
+                            static_cast<const int*>(a.fix_row),
+                            static_cast<const int*>(a.fix_ptr), static_cast<float*>(a.out), a.n,
+                            a.h, a.n_fix, a.n_slots, pieces, lanes);
+}
+
+// Rows of x shorter than kNarrowRowBytes: the widest vector (16, 8, 4 or 2
+// bytes, else scalars) that divides a row and that x's and the outputs'
+// alignment allow.
+template <typename T, bool BF16_MSG>
+cudaError_t launch_narrow(const Args& a) {
+  constexpr int kVec16 = 16 / static_cast<int>(sizeof(T));  // elements in 16 bytes
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(a.x);
+  const uintptr_t oa =
+      reinterpret_cast<uintptr_t>(a.out) | reinterpret_cast<uintptr_t>(a.partial);
+  const auto fits = [&](int vec) {
+    const int out_bytes = 4 * (vec < 4 ? vec : 4);  // stores are at most a float4
+    return a.h % vec == 0 && xa % (vec * sizeof(T)) == 0 && oa % out_bytes == 0;
+  };
+  cudaError_t err;
+  if (fits(kVec16)) {
+    err = launch_narrow_segments<T, BF16_MSG, kVec16>(a);
+  } else if (fits(kVec16 / 2)) {
+    err = launch_narrow_segments<T, BF16_MSG, kVec16 / 2>(a);
+  } else if (kVec16 == 8 && fits(2)) {
+    err = launch_narrow_segments<T, BF16_MSG, 2>(a);
+  } else {
+    err = launch_narrow_segments<T, BF16_MSG, 1>(a);
+  }
+  if (err != cudaSuccess || a.n_fix == 0) return err;
+  if (a.h % 4 == 0 && oa % 16 == 0) return launch_narrow_fixup<4>(a);
+  if (a.h % 2 == 0 && oa % 8 == 0) return launch_narrow_fixup<2>(a);
+  return launch_narrow_fixup<1>(a);
+}
+
 template <typename T, bool BF16_MSG>
 cudaError_t launch_typed(const Args& a) {
+  if (a.h < kNarrowRowBytes / static_cast<int>(sizeof(T))) return launch_narrow<T, BF16_MSG>(a);
   constexpr int kVec16 = 16 / static_cast<int>(sizeof(T));  // elements in 16 bytes
   const uintptr_t xa = reinterpret_cast<uintptr_t>(a.x);
   const uintptr_t oa =

@@ -27,10 +27,16 @@ is a multiple of 16 bytes, 16 lanes (f32, h = 64) or 8 (bf16) take one item
 with 16-byte loads, so one load instruction of a warp gathers a row for
 each of its two or four items, two such instructions in flight, for two
 scenarios at once, so that src and w are read once per pair; registers are
-capped so that 32 warps stay resident on an SM. A lane adds its item's
-messages in edge order. Every output element is written by one thread in an
-order the plan fixes: no atomics, two applies give the same bits, and an
-edgeless row (an item of no edges) writes zeros.
+capped so that 32 warps stay resident on an SM. Rows of x shorter than 128
+bytes (f32 h <= 31, bf16 h <= 63: the multi-graph runs at hidden 8, GIN's
+first layer at 5) take a narrow route of the same kernel source: a lane per
+(item, scenario, column vector), the lanes of an item spanning several
+scenarios, and a fixup with a lane per (scenario, long row, column vector)
+that is launched beside the segment kernel and waits for it. A lane adds
+its item's messages in edge order. Every output element is written by one
+thread in an order the plan fixes: no atomics, two applies give the same
+bits, either route gives the same bits, and an edgeless row (an item of no
+edges) writes zeros.
 
 Beside the kernel: :func:`spmm2_plain`, the same function as a gather and an
 ``index_add_`` with the same bf16 rounding. :func:`spmm2` takes the plain

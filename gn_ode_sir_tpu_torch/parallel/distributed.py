@@ -25,7 +25,13 @@ def backend_for(device_type: str) -> str:
 
 
 def default_device_type() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """The device type of a caller that names none: CUDA. Raises where no card
+    is visible, so that a group meant for the cards never runs on the CPU
+    unasked; the CPU (gloo) is ``device_type="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device_type='cpu' to run the "
+                           "process group on the CPU over gloo")
+    return "cuda"
 
 
 def free_port() -> int:
@@ -45,11 +51,11 @@ def init_distributed(
     """Join the process group (no-op for a single process).
 
     Arguments default to ``MASTER_ADDR``:``MASTER_PORT``, ``WORLD_SIZE`` and
-    ``RANK``. The backend is chosen from ``device_type`` (default: CUDA where
-    a card is visible): ``nccl`` for CUDA, after making card ``LOCAL_RANK``
-    (default ``RANK``) modulo the card count this process's device, and
-    ``gloo`` for the CPU. Returns True when a group of more than one process
-    was initialized here."""
+    ``RANK``. The backend is chosen from ``device_type``: ``nccl`` for CUDA
+    (the default; raises RuntimeError where no card is visible), after making
+    card ``LOCAL_RANK`` (default ``RANK``) modulo the card count this
+    process's device, and ``gloo`` for ``"cpu"``. Returns True when a group
+    of more than one process was initialized here."""
     if coordinator_address is None and os.environ.get("MASTER_ADDR"):
         coordinator_address = (f"{os.environ['MASTER_ADDR']}:"
                                f"{os.environ.get('MASTER_PORT', '29500')}")

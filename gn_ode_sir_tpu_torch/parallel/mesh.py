@@ -24,8 +24,8 @@ def make_mesh(shape=None, axis_names=("data",), device_type: str | None = None) 
     on the first axis; multi-axis layouts (``shape=(2, 2), axis_names=
     ('data', 'edge')``) give each axis its sub-groups. Without a process
     group (a single process, no launcher) a group of this process alone is
-    started first. ``device_type`` defaults to CUDA where a card is
-    visible."""
+    started first. ``device_type`` defaults to CUDA and raises RuntimeError
+    where no card is visible; ``"cpu"`` builds the mesh over gloo."""
     device_type = device_type or default_device_type()
     init_single_process(device_type)
     world = dist.get_world_size()

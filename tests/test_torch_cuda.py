@@ -116,6 +116,50 @@ def test_spmm2_kernel_matches_plain(cuda_device, kind, h, precision, x_dtype):
     assert torch.equal(single, got[0])
 
 
+# K1's narrow route takes rows of x under 128 bytes: f32 h <= 31, bf16 h <= 63;
+# 32 is the first f32 width past it
+NARROW_WIDTHS = [1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 17, 24, 31, 32]
+
+
+def _misaligned(x):
+    """``x``'s values in a contiguous tensor whose data starts one element
+    past an aligned address, so that no load wider than an element fits."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hub", "star", "star_t", "rows", "rows_t"])
+@pytest.mark.parametrize("h", NARROW_WIDTHS)
+def test_spmm2_narrow_kernel_matches_plain(cuda_device, h, kind):
+    """K1's narrow route (rows of x under 128 bytes) against its plain
+    version (rtol/atol 1e-5) at f32 and bf16 x, f32 and bf16 messages, batch
+    1, 3, 8 and 32, and an x one element off its alignment (scalar loads);
+    one launch an apply, and two launches give the same bits. The graphs
+    cut rows into several items, so the fixup runs."""
+    g = _case_graph(kind)
+    rng = np.random.default_rng(h)
+    w = rng.uniform(0.5, 1.5, g.n_edges).astype(np.float32)
+    plan = CsrPlan.build(g.src, g.dst, g.n_nodes, w=w, device=cuda_device)
+    x32 = torch.as_tensor(rng.standard_normal((32, g.n_nodes, h)).astype(np.float32),
+                          device=cuda_device)
+    for batch in (1, 3, 8, 32):
+        for x_dtype in (torch.float32, torch.bfloat16):
+            for precision in ("f32", "bf16"):
+                x = x32[:batch].to(x_dtype).contiguous()
+                for xk in (x, _misaligned(x)):
+                    before = spmm2.launches
+                    got = spmm2(plan, xk, precision)
+                    assert spmm2.launches == before + 1
+                    want = spmm2_plain(plan, x, precision)
+                    assert got.dtype == torch.float32 and got.shape == x.shape
+                    scale = spmm2_plain(plan, x.float().abs(), precision)
+                    _assert_close(got, want, scale, kind)
+                    assert torch.equal(spmm2(plan, xk, precision), got)
+
+
 @pytest.mark.cuda
 def test_spmm2_kernel_edgeless_and_rejects(cuda_device):
     plan = CsrPlan.build(np.zeros(0), np.zeros(0), 40, device=cuda_device)
@@ -179,6 +223,35 @@ def test_spmm2_gradient_kernel_matches_plain(cuda_device, precision, kind):
     assert torch.equal(again, got)
     with torch.inference_mode():
         assert adj.matvec(x.detach()).shape == x.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hub", "star", "star_t", "rows", "rows_t"])
+@pytest.mark.parametrize("h", [5, 8])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_spmm2_narrow_gradient_matches_plain(cuda_device, precision, h, kind):
+    """K1-bwd on the narrow route (h = 5: GIN's first layer, h = 8: the
+    published multi-graph hidden) at batch 8, as the h = 64 gradient test
+    holds it: against autograd through the plain version (f32) or the plain
+    version on the transpose plan with bf16 messages, and bit-equal twice."""
+    g = _case_graph(kind)
+    rng = np.random.default_rng(h)
+    w = rng.uniform(0.5, 1.5, g.n_edges).astype(np.float32)
+    adj = Spmm2Adj.from_graph(g, w=w, precision=precision, device=cuda_device)
+    x = torch.as_tensor(rng.standard_normal((8, g.n_nodes, h)).astype(np.float32),
+                        device=cuda_device).requires_grad_(True)
+    ct = torch.as_tensor(rng.standard_normal((8, g.n_nodes, h)).astype(np.float32),
+                         device=cuda_device)
+    before = (spmm2.launches, spmm2.backward_launches)
+    (got,) = torch.autograd.grad(adj.matvec(x), x, ct)
+    assert (spmm2.launches - before[0], spmm2.backward_launches - before[1]) == (2, 1)
+    if precision == "f32":
+        (want,) = torch.autograd.grad(spmm2_plain(adj.plan, x), x, ct)
+    else:
+        want = spmm2_plain(adj.plan_t, ct, "bf16")
+    _assert_close(got, want, spmm2_plain(adj.plan_t, ct.abs(), precision), kind)
+    (again,) = torch.autograd.grad(adj.matvec(x), x, ct)
+    assert torch.equal(again, got)
 
 
 @pytest.mark.cuda
@@ -325,7 +398,7 @@ def test_multigraph_training_step_on_card_matches_cpu(cuda_device, family):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("member_shape", [(1, 300, 64), (2, 300, 8), (300, 64)])
+@pytest.mark.parametrize("member_shape", [(1, 300, 64), (2, 300, 8), (300, 64), (8, 300, 8)])
 def test_k1_folded_members_equal_separate_launches(cuda_device, member_shape):
     """``torch.func.vmap`` over K = 4 members folds them into one K1 launch
     at [K·B, n, h] and one K1-bwd launch at the same shape; the outputs and

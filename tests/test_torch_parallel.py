@@ -232,6 +232,20 @@ def test_init_distributed_single_process(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
+def test_no_cpu_fallback_without_a_card(monkeypatch):
+    """Without a visible card, ``make_mesh()`` and a multi-process
+    ``init_distributed`` that name no device type raise instead of running
+    over gloo on the CPU; neither starts a group."""
+    from gn_ode_sir_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        init_distributed("127.0.0.1:1", 2, 0)
+    assert not torch.distributed.is_initialized()
+
+
 def test_placements(groups):
     _, results = groups
     got = _every_rank(results, 2, "placements")

@@ -48,7 +48,7 @@ def _jax_spmm2(jg, x, w=None, precision="f32"):
     return one(x) if x.ndim == 2 else np.stack([one(xb) for xb in x])
 
 
-@pytest.mark.parametrize("h", [8, 64, 100])
+@pytest.mark.parametrize("h", [1, 3, 5, 8, 16, 64, 100])
 @pytest.mark.parametrize("batched", [False, True])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_plain_matches_jax_kernel(random_graph, h, batched, weighted):

@@ -57,6 +57,46 @@ def test_k1_gradient_matches_jax_vjp(precision, batched):
     assert dx.dtype == torch.float32 and dx.shape == xt.shape
 
 
+def _hub_graph(n=48, seed=5):
+    """A weighted directed graph whose node 0 receives 150 edges and whose
+    node 1 sends 100, so that both the forward and the transpose plan cut a
+    row into several work items."""
+    rng = np.random.default_rng(seed)
+    pairs = np.concatenate([
+        np.stack([rng.integers(1, n, 150), np.zeros(150, np.int64)], axis=1),
+        np.stack([np.ones(100, np.int64), rng.integers(0, n, 100)], axis=1),
+        rng.integers(0, n, (120, 2))])
+    order = np.argsort(pairs[:, 1], kind="stable")
+    src, dst = pairs[order, 0], pairs[order, 1]
+    w = rng.uniform(0.5, 1.5, src.size).astype(np.float32)
+    return Graph(n_nodes=n, src=src, dst=dst, name="hub"), w
+
+
+@pytest.mark.parametrize("h", [5, 8])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_k1_narrow_gradient_matches_jax_vjp(precision, h):
+    """At the widths of K1's narrow route on the card (h = 5: GIN's first
+    layer, h = 8: the published multi-graph hidden), batch 8, on a graph
+    with rows longer than a work item in both directions: value and
+    gradient against ``jax.vjp`` of the JAX package's ``custom_vjp``
+    (1e-5)."""
+    g, w = _hub_graph()
+    rng = np.random.default_rng(h)
+    x = rng.standard_normal((8, g.n_nodes, h)).astype(np.float32)
+    ct = rng.standard_normal((8, g.n_nodes, h)).astype(np.float32)
+    jadj = Pallas2Adj.from_graph(g, w=w, k_edges=16, r_rows=8, precision=precision)
+    jout, vjp = jax.vjp(jadj.matvec, jnp.asarray(x))
+    (jdx,) = vjp(jnp.asarray(ct))
+
+    adj = Spmm2Adj.from_graph(g, w=w, precision=precision, device="cpu")
+    assert adj.plan.fix_row.numel() and adj.plan_t.fix_row.numel()
+    xt = torch.tensor(x, requires_grad=True)
+    out = adj.matvec(xt)
+    (dx,) = torch.autograd.grad(out, xt, torch.as_tensor(ct))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), rtol=RTOL, atol=ATOL)
+
+
 def test_bf16_gradient_rounds_the_cotangent_not_the_casts():
     """In bf16 mode the gradient is K1 on the transpose plan with bf16
     messages. Plain autograd through ``spmm2_plain`` differentiates the casts
