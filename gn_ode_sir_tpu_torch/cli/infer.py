@@ -42,6 +42,7 @@ from gn_ode_sir_tpu_torch.cli.worker import (
     resolve_device,
 )
 from gn_ode_sir_tpu_torch.train.checkpoint import tree_leaves
+from gn_ode_sir_tpu_torch.utils.profiling import span
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -194,15 +195,35 @@ def _chunked(call, arrays, dispatch_batch, batch_axis):
     return np.concatenate(outs, axis=batch_axis)
 
 
+def _upload(arrays, dev) -> list:
+    """The scenario arrays as tensors on ``dev``. ``_upload.upload_bytes``
+    counts the bytes put on a device this way since import (a copy from the
+    host where ``dev`` is a card), ``_upload.calls`` the calls."""
+    xs = [torch.as_tensor(a, device=dev) for a in arrays]
+    _upload.upload_bytes += sum(x.nbytes for x in xs)
+    _upload.calls += 1
+    return xs
+
+
+_upload.upload_bytes = 0
+_upload.calls = 0
+
+
 def _dispatch(model, params, adj, arrays, reduce_fn=None) -> np.ndarray:
-    """One device dispatch: numpy scenario arrays in, numpy out."""
+    """One device dispatch: numpy scenario arrays in, numpy out. Under a
+    profiler its spans ``serve.upload``, ``serve.forward`` (prediction and
+    reduction) and ``serve.readback`` (where the host waits for what the card
+    has left to do)."""
     dev = next(leaf for _, leaf in tree_leaves(params)).device
     with torch.inference_mode():
-        xs = [torch.as_tensor(a, device=dev) for a in arrays]
-        out = model.predict(params, adj, *xs)
-        if reduce_fn is not None:
-            out = reduce_fn(out)
-        return out.cpu().numpy()
+        with span("serve.upload"):
+            xs = _upload(arrays, dev)
+        with span("serve.forward"):
+            out = model.predict(params, adj, *xs)
+            if reduce_fn is not None:
+                out = reduce_fn(out)
+        with span("serve.readback"):
+            return out.cpu().numpy()
 
 
 def _spmd_world() -> int:

@@ -36,6 +36,7 @@ import torch
 
 from gn_ode_sir_tpu_torch.graphs.graph import Graph
 from gn_ode_sir_tpu_torch.sim.fused_step import MAX_SEED, sir_step
+from gn_ode_sir_tpu_torch.utils.profiling import span
 
 _COIN_MODES = ("auto", "bits16", "rbg16", "bits32", "uniform", "pallas")
 _FUSED_COINS = ("auto", "bits16", "rbg16", "pallas")
@@ -206,17 +207,22 @@ class _Stepper:
 def _simulate_trials(a, masks, betas, gammas, seeds, *, sims: int, max_time: int,
                      coins: str) -> np.ndarray:
     """B trials in one dispatch -> (I, R) indicator SUMS [B, T, 2, n] f32 on
-    the host. Sums of 0/1 indicators are exact in f32 below 2^24."""
+    the host. Sums of 0/1 indicators are exact in f32 below 2^24. Under a
+    profiler its spans ``labels.prepare``, ``labels.steps`` (the time loop's
+    enqueue) and ``labels.readback``."""
     trials, n = masks.shape
-    stepper = _Stepper(a, betas, gammas, seeds, sims, coins)
-    i, r = stepper.init_state(masks)
-    sums = torch.empty((max_time, 2, trials, n), dtype=torch.float32, device=a.device)
-    ssum = lambda x: x.view(trials, sims, n).sum(1, dtype=torch.float32)
-    sums[0, 0], sums[0, 1] = ssum(i), ssum(r)
-    for t in range(1, max_time):
-        i, r = stepper.step(i, r, t)
-        sums[t, 0], sums[t, 1] = ssum(i), ssum(r)
-    return sums.permute(2, 0, 1, 3).cpu().numpy()
+    with span("labels.prepare"):
+        stepper = _Stepper(a, betas, gammas, seeds, sims, coins)
+        i, r = stepper.init_state(masks)
+        sums = torch.empty((max_time, 2, trials, n), dtype=torch.float32, device=a.device)
+    with span("labels.steps"):
+        ssum = lambda x: x.view(trials, sims, n).sum(1, dtype=torch.float32)
+        sums[0, 0], sums[0, 1] = ssum(i), ssum(r)
+        for t in range(1, max_time):
+            i, r = stepper.step(i, r, t)
+            sums[t, 0], sums[t, 1] = ssum(i), ssum(r)
+    with span("labels.readback"):
+        return sums.permute(2, 0, 1, 3).cpu().numpy()
 
 
 def _expand_ir_sums(ir_sums, sims: int) -> np.ndarray:
@@ -319,7 +325,8 @@ def simulate_sir_counts_many(
         sl = slice(lo, lo + max(1, trials_chunk))
         ir = _simulate_trials(a, masks[sl], betas[sl], gammas[sl], seeds[sl], sims=sims,
                               max_time=max_time, coins=coins)
-        out.extend(_expand_ir_sums(row, sims) for row in ir)
+        with span("labels.unpack"):
+            out.extend(_expand_ir_sums(row, sims) for row in ir)
     return out
 
 
@@ -333,11 +340,13 @@ def simulate_sir_many(graph: Graph, trials, *, sims: int = 10000, max_time: int 
                       matmul: str = "auto", device):
     """Batched label triples: a list of per-node (S, I, R) probability arrays
     (each [max_time, n] float64), one per trial. See
-    :func:`simulate_sir_counts_many`."""
+    :func:`simulate_sir_counts_many`. Under a profiler the host's float64
+    division after the last chunk is the span ``labels.probs``."""
     sums = simulate_sir_counts_many(
         graph, trials, sims=sims, max_time=max_time, seeds=seeds,
         trials_chunk=trials_chunk, coins=coins, matmul=matmul, device=device)
-    return [_to_probs(arr, sims) for arr in sums]
+    with span("labels.probs"):
+        return [_to_probs(arr, sims) for arr in sums]
 
 
 def simulate_sir(graph: Graph, seed_nodes, beta: float, gamma: float, *,

@@ -39,7 +39,7 @@ from gn_ode_sir_tpu_torch.train.checkpoint import (checkpoint_path, restore_chec
                                                    save_checkpoint, tree_leaves, tree_map)
 from gn_ode_sir_tpu_torch.train.data import TrialData, epoch_batches, epoch_batches_grouped
 from gn_ode_sir_tpu_torch.train.loss import l1_sir_loss
-from gn_ode_sir_tpu_torch.utils.profiling import trace
+from gn_ode_sir_tpu_torch.utils.profiling import span, trace
 
 
 def _data_to_device(data: TrialData, device) -> dict:
@@ -99,7 +99,11 @@ def make_train_epoch_fn(model, optimizer, adj_fn, node_mask_fn=None, n_view=None
     ``params``, which it updates in place. ``epoch_seed`` (an integer) turns
     dropout on: step k draws its masks from a generator seeded with
     ``fold_seed(epoch_seed, k)``. Returns the epoch's item-weighted mean loss
-    as a 0-d tensor (no host sync inside the epoch)."""
+    as a 0-d tensor (no host sync inside the epoch).
+
+    Under a profiler each step shows as three spans, ``train.forward``
+    (gathers, adjacency, prediction, loss), ``train.backward`` and
+    ``train.optimizer``."""
 
     def train_epoch(params, d, batch_idx, batch_w, epoch_seed=None):
         device = d["beta"].device
@@ -110,10 +114,13 @@ def make_train_epoch_fn(model, optimizer, adj_fn, node_mask_fn=None, n_view=None
             if rng is not None:
                 rng.manual_seed(fold_seed(epoch_seed, k))
             optimizer.zero_grad(set_to_none=True)
-            loss, items = _batch_loss(model, params, adj_fn, node_mask_fn, d, bidx, bw, gi,
-                                      rng=rng, train=True, n_view=n_view)
-            loss.backward()
-            optimizer.step()
+            with span("train.forward"):
+                loss, items = _batch_loss(model, params, adj_fn, node_mask_fn, d, bidx, bw, gi,
+                                          rng=rng, train=True, n_view=n_view)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.optimizer"):
+                optimizer.step()
             loss_sum += loss.detach() * items
             item_sum += items
         return loss_sum / item_sum

@@ -10,12 +10,14 @@ from gn_ode_sir_tpu_torch.utils.labels import (
     load_or_extract_labels,
     load_or_extract_labels_many,
 )
-from gn_ode_sir_tpu_torch.utils.profiling import MetricsLogger, device_memory_stats, trace
+from gn_ode_sir_tpu_torch.utils.profiling import (MetricsLogger, device_memory_stats, span,
+                                                  trace)
 from gn_ode_sir_tpu_torch.utils.timing import Timer
 
 __all__ = [
     "MetricsLogger",
     "device_memory_stats",
+    "span",
     "trace",
     "ExperimentConfig",
     "label_paths",

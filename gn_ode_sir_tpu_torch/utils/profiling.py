@@ -4,6 +4,9 @@
 - :func:`trace` — a context manager over ``torch.profiler.profile`` (CPU and,
   where a card is visible, CUDA activities) that writes a Chrome/TensorBoard
   trace into ``log_dir``;
+- :func:`span` — a phase of the program (``train.forward``, ``serve.upload``,
+  ``labels.steps``, ...) marked in whatever trace a profiler is recording,
+  and nothing at all while none is;
 - :class:`MetricsLogger` — append-only JSONL of per-epoch/step metrics, the
   same lines as the JAX package's;
 - :func:`device_memory_stats` — the allocator's statistics of one card.
@@ -17,6 +20,25 @@ import os
 import time
 
 import torch
+from torch.autograd import _profiler_enabled
+
+_OFF = contextlib.nullcontext()  # what span returns while no profiler records
+
+
+def span(name: str):
+    """``with span("train.forward"): ...`` marks a phase of the program.
+
+    While a ``torch.profiler`` profile records (:func:`trace`, or any other),
+    it is a ``torch.profiler.record_function`` range: a host event on the
+    profiler's clock, in the same event list and trace file as the kernels.
+    Otherwise it returns one shared no-op context: no ``record_function``
+    (about 10 us a range even with no profiler), no allocation, no device
+    sync; the check is one global read. Spans are meant side by side at a
+    layer's boundaries, not one inside another, so that each is a top-level
+    host event of its thread."""
+    if not _profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager

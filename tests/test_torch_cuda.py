@@ -9,6 +9,8 @@ neither), so it runs there without the repository's conftest:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -516,3 +518,50 @@ def test_ell_adjacency_on_card_matches_k1(cuda_device):
     np.testing.assert_allclose(ell.matvec(x).detach().cpu().numpy(),
                                k1.matvec(x).detach().cpu().numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(dx_ell.cpu().numpy(), dx_k1.cpu().numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_program_spans_stay_off_the_device(cuda_device, monkeypatch):
+    """Under the benchmark's profiler one training step through K1 on the
+    card carries the program's spans as host events only: no device
+    operation bears a span's name, and the step launches the same kernels
+    as the same step traced with the spans off. The profiler now and then
+    drops kernel records from a session (on the card, in about one run of
+    this test in five, a session lacked a few of its ~555 kernels; the cause
+    is not known), so as a workaround each side takes the fullest of three
+    sessions: a kernel that a span added or removed would show in all of
+    them."""
+    from perfbench import profiling as bench_profiling
+
+    from gn_ode_sir_tpu_torch.train import build_trial_data
+    from gn_ode_sir_tpu_torch.train.checkpoint import tree_leaves, tree_map
+    from gn_ode_sir_tpu_torch.train.loop import _data_to_device, make_train_epoch_fn
+    from gn_ode_sir_tpu_torch.utils import profiling
+
+    g = _graph()
+    rng = np.random.default_rng(3)
+    triples = [tuple(np.moveaxis(rng.dirichlet([2.0, 1.0, 1.0], size=(4, g.n_nodes)), -1, 0))
+               for _ in range(2)]
+    data = build_trial_data(g.n_nodes, [[3, 9], [5]], [0.3, 0.2], [0.1, 0.3], triples)
+    model = GNODE(hidden=16, max_time=4)
+    params = tree_map(lambda t: t.to(cuda_device).requires_grad_(True),
+                      model.init(torch.Generator().manual_seed(0), device="cpu"))
+    adj = Spmm2Adj.from_graph(g, device=cuda_device)
+    opt = torch.optim.Adam([leaf for _, leaf in tree_leaves(params)], lr=1e-3)
+    fn = make_train_epoch_fn(model, opt, lambda gi: adj)
+    d = _data_to_device(data, cuda_device)
+    step = lambda: fn(params, d, np.array([[0, 1]]), np.ones((1, 2), np.float32))
+    bench_profiling.profiled(step)  # warm-up, the profiler's first session included
+    names = ("train.forward", "train.backward", "train.optimizer")
+    fullest_of_three = lambda: max((bench_profiling.profiled(step)[1] for _ in range(3)),
+                          key=lambda t: t.count(bench_profiling.is_kernel))
+    on = fullest_of_three()
+    assert [sum(n == name for n, _, _ in on.host_ops) for name in names] == [1, 1, 1]
+    assert not [n for n, _, _ in on.device_ops if n in names]
+    monkeypatch.setattr(profiling, "_profiler_enabled", lambda: False)
+    off = fullest_of_three()
+    assert not [n for n, _, _ in off.host_ops if n in names]
+    kernels = lambda t: collections.Counter(n for n, _, _ in t.device_ops
+                                            if bench_profiling.is_kernel(n))
+    assert kernels(on) == kernels(off), (kernels(on) - kernels(off), kernels(off) - kernels(on))
+    assert on.count(bench_profiling.is_kernel) > 0
