@@ -20,15 +20,17 @@ version. Phases, each printed as one JSON line:
    trials, and the whole chunk of trials the label path puts into one
    launch, with the count product timed beside it and checked for exactness
    on the hub), K1-bwd (the gradient through the autograd Function, and the
-   Function's forward); K1 and K1-bwd also at the multi-graph shapes: width
+   Function's forward), K3 (the fused euler SIR update of the no-grad
+   forward, bit for bit, at serving's shape); K1 and K1-bwd also at the
+   multi-graph shapes: width
    8 (the published multi-graph hidden) and 5 (GIN's first layer), plans
    padded to the train view's and the evaluation graph's width, with and
    without GCN-normalized weights;
 4. serve  — C7 GN-ODE (hidden 64, euler, deltaT 0.5, maxTime 20) with
    seeded random params, scored through ``cli.worker``/``cli.infer``:
    16 summary scenarios in dispatches of 8 and 2 full-trajectory scenarios,
-   K1 launch counts per dispatch, and the card's output against the same
-   path on the CPU;
+   K1 launch counts per dispatch (and as many of K3's), and the card's
+   output against the same path on the CPU;
 5. labels — Monte-Carlo labels of six trials (10,000 simulations each)
    through ``utils.load_or_extract_labels_many``: K2 launch counts, label
    invariants, and a second call that is a pure cache hit;
@@ -88,6 +90,7 @@ from gn_ode_sir_tpu_torch.graphs.graph import Graph, graph_from_edges
 from gn_ode_sir_tpu_torch.models import DMPSIR, GCN, GIN, GNODE, TimeUnrolledSIR
 from gn_ode_sir_tpu_torch.ops import _kernels, gcn_norm_edges
 from gn_ode_sir_tpu_torch.ops import spmm2 as spmm2_module
+from gn_ode_sir_tpu_torch.ops.gnode_step import gnode_step, gnode_step_plain
 from gn_ode_sir_tpu_torch.ops.spmm2 import (SEGMENT_EDGES, CsrPlan, Spmm2Adj, spmm2,
                                             spmm2_plain)
 from gn_ode_sir_tpu_torch.sim import classical, mc_sir, sir_classical_batch
@@ -666,6 +669,47 @@ def phase_kernel_k2(graph, chunk_trials) -> dict:
     return main
 
 
+def phase_kernel_k3(graph) -> tuple[dict, list]:
+    """K3 (the fused euler SIR update) against its plain version on the card
+    at serving's shape [8, n, 64], bit for bit, at a plain step and at a label
+    time (the state also written into the decoder's slice), with kernel,
+    device-alone and plain times and the bound: each operand read once, the
+    state (and the slice) written once."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED)
+    shape = (DISPATCH_BATCH, graph.n_nodes, 64)
+    ai = (torch.rand(shape, generator=g) * 40).to(dev)
+    zs, zi = torch.rand(shape, generator=g).to(dev), torch.rand(shape, generator=g).to(dev)
+    state0 = torch.randn((3, *shape), generator=g).to(dev)
+    beta = (0.1 + 0.4 * torch.rand(DISPATCH_BATCH, generator=g)).to(dev)
+    gamma = (0.1 + 0.4 * torch.rand(DISPATCH_BATCH, generator=g)).to(dev)
+    out = torch.empty((DISPATCH_BATCH, graph.n_nodes, 3, 64), device=dev)
+    rows = []
+    for label_time in (False, True):
+        slot = out if label_time else None
+        state, want, want_out = state0.clone(), state0.clone(), torch.zeros_like(out)
+        gnode_step(ai, zs, zi, state, beta, gamma, 0.5, out=slot)
+        gnode_step_plain(ai, zs, zi, want, beta, gamma, 0.5,
+                         out=want_out if label_time else None)
+        torch.cuda.synchronize()
+        if not torch.equal(state, want) or (label_time and not torch.equal(out, want_out)):
+            raise AssertionError(f"K3 (label time {label_time}) is not its plain version's bits")
+        bytes_moved = ai.numel() * 4 * (6 + 3 + (3 if label_time else 0)) + 2 * DISPATCH_BATCH * 4
+        call = lambda: gnode_step(ai, zs, zi, state, beta, gamma, 0.5, out=slot)
+        row = {"phase": "kernel", "kernel": "gnode_step",
+               "case": "label_time" if label_time else "step", "shape": list(shape),
+               "bit_equal": True, "max_abs_err": 0.0, "bytes": bytes_moved,
+               "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "kernel_ms": time_ms(call, 50), "device_ms": graph_replay_ms(call),
+               "plain_ms": time_ms(lambda: gnode_step_plain(
+                   ai, zs, zi, want, beta, gamma, 0.5,
+                   out=want_out if label_time else None), 10),
+               "library_ms": None, "ok": True}
+        emit(row)
+        rows.append(row)
+    return rows[0], rows[1:]
+
+
 def phase_serve(graph) -> dict:
     argv = ["--model", "ode_nn", "--hidden", "64", "--method", "euler",
             "--deltaT", "0.5", "--maxTime", "20", "--spmm", "auto"]
@@ -695,7 +739,7 @@ def phase_serve(graph) -> dict:
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    spmm2.launches = 0  # the main path starts here
+    spmm2.launches = gnode_step.launches = 0  # the main path starts here
     t0 = time.perf_counter()
     rows = infer.predict_summaries(model, params, adj, *sb, dispatch_batch=DISPATCH_BATCH)
     t_summ = time.perf_counter() - t0
@@ -704,7 +748,11 @@ def phase_serve(graph) -> dict:
     out = infer.predict_scenarios(model, params, adj, *two)
     t_full = time.perf_counter() - t0
     launches = spmm2.launches  # the main path ends here
+    k3_launches = gnode_step.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if k3_launches != launches:
+        raise AssertionError(f"K3 launches {k3_launches} != K1 launches {launches}: a field "
+                             "evaluation of serving did not take the fused step")
 
     n_dispatch = -(-SERVE_SCENARIOS // DISPATCH_BATCH)
     if launches_summ != n_dispatch * EULER_STEPS or launches != (n_dispatch + 1) * EULER_STEPS:
@@ -738,6 +786,7 @@ def phase_serve(graph) -> dict:
            "ms_per_dispatch": t_summ / n_dispatch * 1e3,
            "full_trajectory_scenarios": 2, "full_trajectory_s": t_full,
            "k1_launches": launches, "k1_launches_per_dispatch": EULER_STEPS,
+           "k3_launches": k3_launches,
            "peak_memory_gb": peak_gb, "cpu_reference_s": cpu_s,
            "max_abs_err_vs_cpu": err, "atol": SERVE_ATOL, "ok": True}
     emit(row)
@@ -922,9 +971,11 @@ def phase_train(graph, trials, save_dir) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    spmm2.launches = spmm2.backward_launches = sir_step.launches = 0  # the path starts here
+    # the path starts here
+    spmm2.launches = spmm2.backward_launches = sir_step.launches = gnode_step.launches = 0
     printed, seconds = run_worker(argv, graph)
     total, backward, k2 = spmm2.launches, spmm2.backward_launches, sir_step.launches
+    k3 = gnode_step.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if k2 != 0:
         raise AssertionError(f"K2 launches {k2} (labels were cached)")
@@ -990,7 +1041,7 @@ def phase_train(graph, trials, save_dir) -> dict:
     row = {"phase": "train", "n": graph.n_nodes, "hidden": 64, "batch_size": 1,
            "epochs": TRAIN_EPOCHS, "adjoint": model.adjoint, "trials": "3 train, 1 val, 2 test",
            "seconds": seconds, "history": hist, "test_loss": test_loss,
-           "k1_launches": total, "k1_backward_launches": backward,
+           "k1_launches": total, "k1_backward_launches": backward, "k3_launches": k3,
            "k1_forward_per_minibatch": fwd_per_batch, "k1_backward_per_minibatch": EULER_STEPS,
            "evaluation_passes": int(evals), "peak_memory_gb": peak_gb,
            "step_ms": step_ms, "step_loss_card": loss_gpu, "step_loss_cpu": loss_cpu,
@@ -1058,10 +1109,12 @@ def phase_multigraph(graphs, save_dir) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    spmm2.launches = spmm2.backward_launches = sir_step.launches = 0  # the path starts here
+    # the path starts here
+    spmm2.launches = spmm2.backward_launches = sir_step.launches = gnode_step.launches = 0
     with recorded_matvecs() as record:
         printed, seconds = run_worker(argv, graphs)
     total, backward, k2 = spmm2.launches, spmm2.backward_launches, sir_step.launches
+    k3 = gnode_step.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     if "multigraph adjacency backend: pallas2" not in printed:
@@ -1187,7 +1240,8 @@ def phase_multigraph(graphs, save_dir) -> dict:
            "trials_per_graph": MG_TRIALS_PER_GRAPH, "sims": MG_SIMS, "backend": conn.kind,
            "train_width": MG_TRAIN_WIDTH, "eval_width": n_max, "seconds": seconds,
            "history": hist, "csv_row": row, "k1_launches": total,
-           "k1_backward_launches": backward, "k1_per_minibatch_or_pass": EULER_STEPS,
+           "k1_backward_launches": backward, "k3_launches": k3,
+           "k1_per_minibatch_or_pass": EULER_STEPS,
            "train_minibatches": steps, "evaluation_passes": passes, "k2_launches": k2,
            "peak_memory_gb": peak_gb, "step_ms_by_graph": step_ms, "eval_pass_ms": eval_ms,
            "step_grad_rel_err": step_rel, "cpu_step_s": cpu_s,
@@ -1376,10 +1430,10 @@ def matrix_ensemble(graph, trials, save_dir) -> dict:
             "--path_to_save", save_dir, *trial_argv(trials)]
     csv_before = len(csv_rows(save_dir, graph.name))
     torch.cuda.synchronize()
-    spmm2.launches = spmm2.backward_launches = 0  # the ensemble's path starts here
+    spmm2.launches = spmm2.backward_launches = gnode_step.launches = 0  # the path starts here
     with recorded_launches() as record:
         printed, seconds = run_worker([*argv, "--ensemble", str(k), "--trial", "11"], graph)
-    launches = (spmm2.launches, spmm2.backward_launches)  # and ends here
+    launches = (spmm2.launches, spmm2.backward_launches, gnode_step.launches)  # and ends here
     if "ensemble routes (training, evaluation): ('fold', 'per_member')" not in printed:
         raise AssertionError("the single-graph ensemble did not fold its training steps")
     hist = ensemble_history(printed, k)
@@ -1408,6 +1462,7 @@ def matrix_ensemble(graph, trials, save_dir) -> dict:
             "csv_rows": [{c: r[c] for c in ("trial", "best_epoch", "val_loss", "test_loss")}
                          for r in rows],
             "k1_launches": launches[0], "k1_backward_launches": launches[1],
+            "k3_launches": launches[2],
             "k1_per_training_step": {"forward": EULER_STEPS, "backward": EULER_STEPS,
                                      "shape": [k, n, h]},
             "k1_per_evaluation_pass": {"forward": k * EULER_STEPS, "shape": [8, n, h]},
@@ -1433,12 +1488,14 @@ def matrix_multigraph(graphs, save_dir) -> dict:
     k = len(cfg.hidden_dim_array)
     csv_before = len(csv_rows(save_dir, dataset))
     torch.cuda.synchronize()
-    spmm2.launches = spmm2.backward_launches = sir_step.launches = 0  # the path starts here
+    # the path starts here
+    spmm2.launches = spmm2.backward_launches = sir_step.launches = gnode_step.launches = 0
     with recorded_launches() as record, FdCapture() as out:
         t0 = time.perf_counter()
         rc = monitorer.run_matrix(cfg, ensemble=True, device="cuda", graphs={dataset: graphs})
         seconds = time.perf_counter() - t0
-    launches = (spmm2.launches, spmm2.backward_launches, sir_step.launches)  # ends here
+    launches = (spmm2.launches, spmm2.backward_launches, sir_step.launches,
+                gnode_step.launches)  # the path ends here
     printed = out.text
     if rc != 0 or "Started experiment 1/1" not in printed or f"ensemble={k}" not in printed:
         raise AssertionError(f"run_matrix --ensemble: rc {rc}\n{printed[-3000:]}")
@@ -1507,6 +1564,7 @@ def matrix_multigraph(graphs, save_dir) -> dict:
             "csv_rows": [{c: r[c] for c in ("trial", "best_epoch", "val_loss", "test_loss")}
                          for r in rows],
             "k1_launches": launches[0], "k1_backward_launches": launches[1],
+            "k3_launches": launches[3],
             "k1_training": {**train, "shape": [MG_BATCH, MG_TRAIN_WIDTH, MG_HIDDEN]},
             "k1_evaluation": {**evals, "shape": [k * MG_BATCH, n_max, MG_HIDDEN],
                               "per_pass": EULER_STEPS},
@@ -1536,9 +1594,9 @@ def matrix_crash_resume(graph, trials, root) -> dict:
         raise AssertionError("the job does not reuse the labelled trials")
     plain = dataclasses.replace(cfg, worker_flags=("--spmm", "auto", "--auto_checkpoint", "0"))
     argv = monitorer.build_worker_argv(plain, dataset, save_dir, 64, 1, i_indices, betas, gammas)
-    spmm2.launches = spmm2.backward_launches = 0  # the uninterrupted run starts here
+    spmm2.launches = spmm2.backward_launches = gnode_step.launches = 0  # the run starts here
     printed, _ = run_worker(argv, graph)
-    launches = (spmm2.launches, spmm2.backward_launches)  # and ends here
+    launches = (spmm2.launches, spmm2.backward_launches, gnode_step.launches)  # and ends here
     want = training_history(printed, CRASH_EPOCHS)
     want_row = csv_rows(save_dir, graph.name)[-1]
     with FdCapture(1) as out, FdCapture(2) as err:
@@ -1567,6 +1625,7 @@ def matrix_crash_resume(graph, trials, root) -> dict:
             "history": [list(r) for r in resumed], "csv_row": {c: row[c] for c in keys},
             "equal_to_uninterrupted": True,
             "k1_launches": launches[0], "k1_backward_launches": launches[1],
+            "k3_launches": launches[2],
             "launches_counted": "the uninterrupted run in this process; the worker "
                                 "processes' are not counted"}
 
@@ -1594,7 +1653,7 @@ def matrix_backsolve(graph, small, trials, save_dir) -> dict:
     fb-food-size graph with rk4 at deltaT 0.125 over maxTime 5, where the
     reverse reconstruction is accurate."""
     out = {"part": "backsolve", "hidden": 64, "batch_size": 1}
-    spmm2.launches = spmm2.backward_launches = 0  # the path starts here
+    spmm2.launches = spmm2.backward_launches = gnode_step.launches = 0  # the path starts here
     for case, g, method, max_time, delta_t, held in (
             ("enron_c7_euler", graph, "euler", MAX_TIME, 0.5, False),
             ("fb_food_rk4_fine", small, "rk4", 5, 0.125, True)):
@@ -1628,6 +1687,7 @@ def matrix_backsolve(graph, small, trials, save_dir) -> dict:
                      "k1_launches": {"direct": list(k_d), "backsolve": list(k_b)},
                      "peak_memory_gb": {"direct": mem_d, "backsolve": mem_b}}
     out["k1_launches"], out["k1_backward_launches"] = spmm2.launches, spmm2.backward_launches
+    out["k3_launches"] = gnode_step.launches
     out["tol"] = f"loss 1e-6 relative; fb_food_rk4_fine leaves {BACKSOLVE_GRAD_RTOL} of their scale"
     return out
 
@@ -1665,7 +1725,7 @@ def matrix_dopri(graph, small) -> dict:
     infer.predict_summaries(model, params, adj, *sb)  # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    spmm2.launches = 0  # the path starts here
+    spmm2.launches = gnode_step.launches = 0  # the path starts here
     t0 = time.perf_counter()
     card = infer.predict_scenarios(model, params, adj, *sb)
     ms = (time.perf_counter() - t0) * 1e3
@@ -1687,7 +1747,7 @@ def matrix_dopri(graph, small) -> dict:
     before = spmm2.launches
     card_s = infer.predict_scenarios(model_s, params, adj_s, *sb_s)
     launches_s = spmm2.launches - before
-    launches = spmm2.launches  # and ends here
+    launches, k3 = spmm2.launches, gnode_step.launches  # and ends here
     cpu_s = infer.predict_scenarios(cpu_model, params_cpu, cpu_adj, *sb_s)
     err = float(np.abs(card_s - cpu_s).max())
     if launches_s != 6 * budget + 1 or not np.isfinite(card_s).all() or err > DOPRI_ATOL:
@@ -1699,7 +1759,7 @@ def matrix_dopri(graph, small) -> dict:
                       "max_abs_diff_other_sum_order": float(np.abs(card - reordered).max())},
             "held": {"n": small.n_nodes, "budget": budget, "k1_per_dispatch": launches_s,
                      "max_abs_err_vs_cpu": err, "atol": DOPRI_ATOL},
-            "k1_launches": launches}
+            "k1_launches": launches, "k3_launches": k3}
 
 
 def matrix_node_split(graph, trials, save_dir) -> dict:
@@ -1711,9 +1771,10 @@ def matrix_node_split(graph, trials, save_dir) -> dict:
             "--deltaT", "0.5", "--lr", "1e-3", "--epochs", "1", "--sim", str(LABEL_SIMS),
             "--spmm", "auto", "--dataset", graph.name, "--path_to_save", save_dir,
             "--trial", "31", "--I_indices", str(nodes), "--beta", "0.2", "--gamma", "0.1"]
-    spmm2.launches = spmm2.backward_launches = sir_step.launches = 0  # the path starts here
+    # the path starts here
+    spmm2.launches = spmm2.backward_launches = sir_step.launches = gnode_step.launches = 0
     printed, seconds = run_worker(argv, graph)
-    launches = (spmm2.launches, spmm2.backward_launches, sir_step.launches)  # ends here
+    launches = (spmm2.launches, spmm2.backward_launches, sir_step.launches, gnode_step.launches)
     row = csv_rows(save_dir, graph.name)[-1]
     evals = 4 * EULER_STEPS  # rk4
     # forward, the checkpoint adjoint's recompute, and the test pass; backward
@@ -1725,7 +1786,7 @@ def matrix_node_split(graph, trials, save_dir) -> dict:
             "csv_row": {c: row[c] for c in ("trial", "best_epoch", "val_loss", "test_loss",
                                             "loss_baseline", "n_ode_time", "rk_time")},
             "k1_launches": launches[0], "k1_backward_launches": launches[1],
-            "k2_launches": launches[2]}
+            "k2_launches": launches[2], "k3_launches": launches[3]}
 
 
 def phase_matrix_single(graph, trials, small, root, save_dir) -> dict:
@@ -1996,11 +2057,12 @@ def phase_parallel(graph, trials, root, save_dir) -> dict:
         """``fn()`` with every launch count set to 0 just before it and read
         just after it; every kernel named must have been launched."""
         torch.cuda.synchronize()
-        spmm2.launches = spmm2.backward_launches = sir_step.launches = 0
+        spmm2.launches = spmm2.backward_launches = sir_step.launches = gnode_step.launches = 0
         result = fn()
         torch.cuda.synchronize()
         n = {"k1": spmm2.launches - spmm2.backward_launches,
-             "k1_backward": spmm2.backward_launches, "k2": sir_step.launches}
+             "k1_backward": spmm2.backward_launches, "k2": sir_step.launches,
+             "k3": gnode_step.launches}
         if any(n[k] == 0 for k in kernels):
             raise AssertionError(f"{piece} did not go through {kernels}: launches {n}")
         launches[piece] = n
@@ -2101,6 +2163,7 @@ def phase_parallel(graph, trials, root, save_dir) -> dict:
     out["k1_backward_launches"] = total("k1_backward")
     out["k1_launches"] = total("k1") + total("k1_backward")  # as spmm2.launches counts
     out["k2_launches"] = total("k2")
+    out["k3_launches"] = total("k3")
     out["tol"] = (f"loss {SPMD_LOSS_ATOL}, leaf update {SPMD_LEAF_RTOL} (max-norm), "
                   "serving bit for bit")
     infer._serving_mesh.cache_clear()
@@ -2143,7 +2206,7 @@ def phase_utils(graph, trials, root, save_dir) -> dict:
         opt.step()
 
     torch.cuda.synchronize()
-    spmm2.launches = spmm2.backward_launches = 0  # the paths start here
+    spmm2.launches = spmm2.backward_launches = gnode_step.launches = 0  # the paths start here
     step()
 
     def step_ms(repeats: int = 3) -> float:
@@ -2180,7 +2243,7 @@ def phase_utils(graph, trials, root, save_dir) -> dict:
         raise AssertionError("device_memory_stats() is empty on the card")
     after_ms = step_ms()  # the profiler is off again
     torch.cuda.synchronize()
-    launches = (spmm2.launches, spmm2.backward_launches)  # the paths end here
+    launches = (spmm2.launches, spmm2.backward_launches, gnode_step.launches)  # paths end here
     step_model = mg_train_epoch_model(graph.n_nodes, 64, 1, [(1, graph.n_edges)], EULER_STEPS)
     k1_model = spmm_apply_model(graph.n_nodes, graph.n_edges, 64)
     row = {"phase": "utils", "trace_file_bytes": os.path.getsize(files[0]),
@@ -2191,7 +2254,8 @@ def phase_utils(graph, trials, root, save_dir) -> dict:
            "step_ms_after_tracing": after_ms, "k1_b1_ms": k1_b1_ms,
            "utilization_step": utilization(step_model, untraced_ms / 1e3, H100_PEAKS),
            "utilization_k1_b1": utilization(k1_model, k1_b1_ms / 1e3, H100_PEAKS),
-           "k1_launches": launches[0], "k1_backward_launches": launches[1], "ok": True}
+           "k1_launches": launches[0], "k1_backward_launches": launches[1],
+           "k3_launches": launches[2], "ok": True}
     emit(row)
     return row
 
@@ -2213,6 +2277,7 @@ def main() -> int:
     mg_graphs = multigraph_graphs()
     k1, k1_mg = phase_kernel(graph, mg_graphs)
     k2 = phase_kernel_k2(graph, trials[:chunk])
+    k3, k3_label = phase_kernel_k3(graph)
     k1b, k1b_mg = phase_kernel_bwd(graph, mg_graphs)
     emit(narrow_summary(k1_mg + k1b_mg))
     shard_fwd, shard_bwd = phase_kernel_shards(graph)
@@ -2261,7 +2326,9 @@ def main() -> int:
         kernel("sir_step", "gn_ode_sir_tpu_torch/csrc/sir_step.cu",
                "gn_ode_sir_tpu/sim/pallas_step.py:36",
                labels["k2_launches"] + mg["k2_launches"]
-               + matrix["node_split"]["k2_launches"] + parallel["k2_launches"], k2)]})
+               + matrix["node_split"]["k2_launches"] + parallel["k2_launches"], k2),
+        kernel("gnode_step", "gn_ode_sir_tpu_torch/csrc/gnode_step.cu", None,
+               sum(p["k3_launches"] for p in (serve, *paths)), k3, k3_label)]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

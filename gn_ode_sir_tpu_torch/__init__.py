@@ -10,7 +10,9 @@ experiment matrix and the parallel layer.
 - ``ops``      — dense/COO/ELL SpMM, and K1, the hand-written CUDA SpMM
                  (``csrc/spmm2.cu``, forward and gradient) that replaces the
                  chunked Pallas kernel
-                 ``gn_ode_sir_tpu/ops/pallas_spmm2.py::_kernel``.
+                 ``gn_ode_sir_tpu/ops/pallas_spmm2.py::_kernel``; K3, the
+                 GN-ODE's euler SIR update of the no-grad forward in one
+                 CUDA kernel (``csrc/gnode_step.cu``).
 - ``sim``      — the vectorized Monte-Carlo SIR simulator, whose step is K2,
                  the CUDA kernel ``csrc/sir_step.cu`` in place of
                  ``gn_ode_sir_tpu/sim/pallas_step.py::_step_kernel``; the

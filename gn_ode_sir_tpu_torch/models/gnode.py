@@ -30,8 +30,9 @@ import numpy as np
 import torch
 
 from gn_ode_sir_tpu_torch.models.common import layer_norm, linear, linear_init
-from gn_ode_sir_tpu_torch.odeint import integer_time_indices, odeint_grid
+from gn_ode_sir_tpu_torch.odeint import integer_time_indices, odeint_grid, solvers
 from gn_ode_sir_tpu_torch.odeint.dopri import odeint_grid_adaptive
+from gn_ode_sir_tpu_torch.ops.gnode_step import gnode_step, sir_derivative
 
 
 def _map_params(fn, params: dict) -> dict:
@@ -60,12 +61,7 @@ def gnode_ode_func(t, y, args, *, activation: str, deriv_layernorm: bool):
     z = linear(params["func"], torch.stack(y[:2]))  # [2, B, n, h]
     z = _sigmoid(z) if activation == "sigmoid" else torch.relu(z)
     zs, zi = z[0], z[1]
-    ai = adj.matvec(zi).to(dt)
-    b = beta.to(dt)[:, None, None]
-    g = gamma.to(dt)[:, None, None]
-    ds = -b * ai * zs
-    di = -ds - g * zi
-    dr = g * zi
+    ds, di, dr = sir_derivative(adj.matvec(zi).to(dt), zs, zi, beta, gamma)
     if deriv_layernorm:  # legacy dense variant
         ln = lambda u: layer_norm(params["ln_scale"], params["ln_bias"], u)
         ds, di, dr = ln(ds), ln(di), ln(dr)
@@ -74,7 +70,11 @@ def gnode_ode_func(t, y, args, *, activation: str, deriv_layernorm: bool):
 
 def _decode(params: dict, traj) -> torch.Tensor:
     """(S, I, R) trajectory tuple of [T, B, n, h] -> probabilities [T, B, n, 3]."""
-    y = torch.stack(traj, dim=-2).float()  # [T, B, n, 3, h]
+    return _decode_stacked(params, torch.stack(traj, dim=-2).float())
+
+
+def _decode_stacked(params: dict, y: torch.Tensor) -> torch.Tensor:
+    """States [T, B, n, 3, h] (the channels stacked) -> probabilities [T, B, n, 3]."""
     u = torch.relu(linear(params["dec1"], y))
     v = linear(params["dec2"], u)[..., 0]  # [T, B, n, 3]
     return torch.softmax(v, dim=-1)
@@ -148,12 +148,83 @@ class GNODE:
         del rng, train
         return _decode(params, self._trajectory(params, adj, s0, i0, r0, beta, gamma))
 
+    def _fused_forward(self, params, tensors) -> bool:
+        """Whether :meth:`predict` takes :meth:`_label_states`: no gradient is
+        recorded, the method is the solver table's own euler step (the step
+        the fused forward computes; an entry replaced at run time takes the
+        old path), in float32 with a sigmoid or relu field and no layer norm,
+        and the inputs are float32 tensors outside any ``torch.func``
+        transform (the ensemble's ``vmap``).
+
+        The benchmark's serving fault ``state_unchanged`` replaces the table's
+        euler entry, so under it serving runs the old path, not K3. The
+        table check is a stopgap: it goes, for ``method == "euler"``, once
+        that fault is planted on :func:`gnode_step` (PERF.md, Open
+        questions)."""
+        leaves = (params["enc"]["w"], params["func"]["w"], *tensors)
+        return (not torch.is_grad_enabled()
+                and solvers.METHODS.get(self.method) is solvers._euler
+                and self.compute_dtype == "f32" and not self.deriv_layernorm
+                and self.activation in ("sigmoid", "relu")
+                and not torch._C._are_functorch_transforms_active()
+                and all(t.dtype == torch.float32 for t in leaves))
+
+    def _label_states(self, params, adj, s0, i0, r0, beta, gamma) -> torch.Tensor:
+        """The euler forward without autograd, for :meth:`predict`: the states
+        at the label times, [max_time, B, n, 3, h], the decoder's input.
+
+        The same ops in the same order as :meth:`_trajectory` and
+        :func:`_decode`'s stack, so the same bits, but in place: the encoder
+        writes the working state [3, B, n, h], whose S and I rows are the
+        matrix that the field's linear reads; the linear, its bias and the
+        activation write one [2, B, n, h] buffer; K3 (:func:`gnode_step`)
+        updates the state and, at a label time, writes it into the decoder's
+        input. Nothing is stacked or gathered after the loop."""
+        b, n = s0.shape
+        h = params["func"]["w"].shape[0]
+        f32 = {"dtype": torch.float32, "device": s0.device}
+        y = torch.empty((3, b, n, h), **f32)
+        z = torch.empty((2, b, n, h), **f32)
+        grid_index = integer_time_indices(self.max_time, self.delta_t).tolist()
+        states = torch.empty((len(grid_index), b, n, 3, h), **f32)
+        slots = {}  # grid index -> the label times it gives
+        for k, j in enumerate(grid_index):
+            slots.setdefault(j, []).append(k)
+        enc = params["enc"]
+        for c, x0 in enumerate((s0, i0, r0)):
+            if c == 2 and not self.encode_r:
+                y[2].zero_()
+            else:
+                torch.mm(x0.reshape(-1, 1), enc["w"], out=y[c].view(-1, h))
+                y[c].add_(enc["b"]).relu_()
+        for k in slots.get(0, ()):
+            states[k].copy_(y.permute(1, 2, 0, 3))
+        w, bias = params["func"]["w"], params["func"]["b"]
+        activate = torch.sigmoid_ if self.activation == "sigmoid" else torch.relu_
+        beta, gamma = (x.to(torch.float32).contiguous() for x in (beta, gamma))
+        ts = self.ts
+        dt = ts[1] - ts[0]
+        for j in range(1, len(ts)):
+            torch.mm(y[:2].view(-1, h), w, out=z.view(-1, h))
+            activate(z.add_(bias))
+            first, *more = slots.get(j, (None,))
+            gnode_step(adj.matvec(z[1]), z[0], z[1], y, beta, gamma, dt,
+                       out=None if first is None else states[first])
+            for k in more:
+                states[k].copy_(states[first])
+        return states
+
     def predict(self, params, adj, s0, i0, r0, beta, gamma, *, rng=None, train=False):
         """Probabilities at integer label times: [max_time, B, n, 3].
 
         The decode is pointwise in time, so it runs on the resampled states
-        only — the same numbers as resampling :meth:`apply`'s output."""
+        only — the same numbers as resampling :meth:`apply`'s output. Without
+        autograd, the euler forward runs in place (:meth:`_label_states`);
+        everything else takes :meth:`_trajectory`."""
         del rng, train
+        if self._fused_forward(params, (s0, i0, r0)):
+            return _decode_stacked(
+                params, self._label_states(params, adj, s0, i0, r0, beta, gamma))
         traj = self._trajectory(params, adj, s0, i0, r0, beta, gamma)
         idx = torch.as_tensor(integer_time_indices(self.max_time, self.delta_t),
                               dtype=torch.long, device=traj[0].device)

@@ -10,6 +10,8 @@
 - ``gcn_norm_edges`` — the GCN baseline's normalised edge weights (host),
 - ``spmm2`` (``ops.spmm2``) — K1, the hand-written CUDA SpMM for the
   large-graph path, built from ``csrc/`` by ``ops._kernels`` at first use.
+- ``gnode_step`` (``ops.gnode_step``) — K3, the GN-ODE's euler SIR update
+  of the no-grad forward as one CUDA kernel, and its plain version.
 """
 
 from gn_ode_sir_tpu_torch.ops.segment import segment_prod, segment_sum

@@ -33,12 +33,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _U = ctypes.c_uint
+_F = ctypes.c_float
 # kernel name -> (source file, C symbol, argtypes); restype is int (cudaError_t)
 KERNELS = {
     "spmm2": ("spmm2.cu", "gnode_spmm2",
               [_I, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I]),
     "sir_step": ("sir_step.cu", "gnode_sir_step",
                  [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _U, _P]),
+    "gnode_step": ("gnode_step.cu", "gnode_step",
+                   [_P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _L, _I, _P]),
 }
 
 _FUNCS: dict[str, ctypes._CFuncPtr] = {}

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on the card: each kernel (K1, K1's gradient, K2)
-against its plain version, and the serving path and the simulator on the card
-against the same paths on the CPU.
+"""The port's CUDA kernels on the card: each kernel (K1, K1's gradient, K2,
+K3) against its plain version, and the serving path and the simulator on the
+card against the same paths on the CPU.
 
 Every test here is marked ``cuda`` and skips where no card is visible. The
 file imports neither JAX nor networkx (the machine with the card has
@@ -565,3 +565,138 @@ def test_program_spans_stay_off_the_device(cuda_device, monkeypatch):
                                             if bench_profiling.is_kernel(n))
     assert kernels(on) == kernels(off), (kernels(on) - kernels(off), kernels(off) - kernels(on))
     assert on.count(bench_profiling.is_kernel) > 0
+
+
+def _k3_inputs(batch, n, h, device, seed=0):
+    """K3's operands: activations in (0, 1), an A·Z_I of a graph's row sums,
+    a state of any sign, rates in [0.1, 0.5]."""
+    g = torch.Generator().manual_seed(seed)
+    rand = lambda *s: torch.rand(*s, generator=g)
+    ops = (rand(batch, n, h) * 40, rand(batch, n, h), rand(batch, n, h),
+           torch.randn(3, batch, n, h, generator=g), 0.1 + 0.4 * rand(batch),
+           0.1 + 0.4 * rand(batch))
+    return [t.to(device) for t in ops]
+
+
+def _misaligned_copy(t):
+    """``t``'s values in a contiguous tensor one element off 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("h", [8, 64, 5])
+@pytest.mark.parametrize("label_time", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gnode_step_kernel_matches_plain(cuda_device, batch, h, label_time, aligned):
+    """K3 against its plain version bit for bit, in place and into the
+    decoder's slice; h = 5 and an operand one element off alignment take the
+    one-element route."""
+    from gn_ode_sir_tpu_torch.ops.gnode_step import gnode_step, gnode_step_plain
+
+    n = 1000
+    ai, zs, zi, state, beta, gamma = _k3_inputs(batch, n, h, cuda_device, seed=batch * h)
+    if not aligned:
+        ai = _misaligned_copy(ai)
+    want_state = state.clone()
+    want_out = torch.zeros(batch, n, 3, h, device=cuda_device)
+    gnode_step_plain(ai, zs, zi, want_state, beta, gamma, 0.5,
+                     out=want_out if label_time else None)
+    out = torch.zeros(batch, n, 3, h, device=cuda_device)
+    launches = gnode_step.launches
+    gnode_step(ai, zs, zi, state, beta, gamma, 0.5, out=out if label_time else None)
+    torch.cuda.synchronize()
+    assert gnode_step.launches == launches + 1
+    assert torch.equal(state, want_state)
+    assert torch.equal(out, want_out)
+    cpu = [t.cpu() for t in (ai, zs, zi, beta, gamma)]
+    on_cpu = _k3_inputs(batch, n, h, "cpu", seed=batch * h)[3]
+    gnode_step(cpu[0], cpu[1], cpu[2], on_cpu, cpu[3], cpu[4], 0.5)
+    assert torch.equal(state.cpu(), on_cpu)  # the CPU's rounding: the same bits
+
+
+@pytest.mark.cuda
+def test_gnode_step_kernel_refuses(cuda_device):
+    from gn_ode_sir_tpu_torch.ops.gnode_step import gnode_step
+
+    ai, zs, zi, state, beta, gamma = _k3_inputs(2, 50, 8, cuda_device)
+    launches = gnode_step.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        gnode_step(ai.transpose(1, 2).contiguous().transpose(1, 2), zs, zi, state, beta,
+                   gamma, 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        gnode_step(ai, zs, zi, state, beta, gamma, 0.5,
+                   out=torch.zeros(2, 50, 8, 3, device=cuda_device).transpose(2, 3))
+    with pytest.raises(TypeError, match="float32"):
+        gnode_step(ai, zs, zi, state, beta.double(), gamma, 0.5)
+    with pytest.raises(ValueError, match="tensors on"):
+        gnode_step(ai, zs, zi, state, beta.cpu(), gamma, 0.5)
+    assert gnode_step.launches == launches
+
+
+KARATE_EDGES = [
+    (0, 1), (0, 2), (0, 3), (0, 4), (0, 5), (0, 6), (0, 7), (0, 8), (0, 10), (0, 11), (0, 12),
+    (0, 13), (0, 17), (0, 19), (0, 21), (0, 31), (1, 2), (1, 3), (1, 7), (1, 13), (1, 17),
+    (1, 19), (1, 21), (1, 30), (2, 3), (2, 7), (2, 8), (2, 9), (2, 13), (2, 27), (2, 28),
+    (2, 32), (3, 7), (3, 12), (3, 13), (4, 6), (4, 10), (5, 6), (5, 10), (5, 16), (6, 16),
+    (8, 30), (8, 32), (8, 33), (9, 33), (13, 33), (14, 32), (14, 33), (15, 32), (15, 33),
+    (18, 32), (18, 33), (19, 33), (20, 32), (20, 33), (22, 32), (22, 33), (23, 25), (23, 27),
+    (23, 29), (23, 32), (23, 33), (24, 25), (24, 27), (24, 31), (25, 31), (26, 29), (26, 33),
+    (27, 33), (28, 31), (28, 33), (29, 32), (29, 33), (30, 32), (30, 33), (31, 32), (31, 33),
+    (32, 33)]  # Zachary's karate club (networkx's karate_club_graph), which the card lacks
+
+
+def _powerlaw_graph(n=10_000, m=50_000, seed=7):
+    """Edges with power-law in-degrees: hubs of a few thousand edges."""
+    rng = np.random.default_rng(seed)
+    p = (np.arange(n) + 1.0) ** -0.8
+    pairs = np.stack([rng.integers(0, n, m), rng.choice(n, m, p=p / p.sum())], axis=1)
+    return graph_from_edges(n, pairs[pairs[:, 0] != pairs[:, 1]], name="powerlaw")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["powerlaw_k1", "karate_dense", "karate_dense_wide"])
+def test_fused_predict_on_card_is_the_old_path(cuda_device, case):
+    """``predict`` without autograd (K3, the state in place, the label times
+    written for the decoder) against ``_decode`` over the resampled
+    ``_trajectory`` on the card, bit for bit; one K3 launch a field
+    evaluation, as many as K1's applies. The wide case holds more scenarios
+    than a grid's y dimension (65,535)."""
+    from gn_ode_sir_tpu_torch.models.gnode import _decode
+    from gn_ode_sir_tpu_torch.odeint import integer_time_indices
+    from gn_ode_sir_tpu_torch.ops.gnode_step import gnode_step
+
+    if case == "powerlaw_k1":
+        g, kind, batch, model = _powerlaw_graph(), "pallas2", 8, GNODE(hidden=64)
+    else:
+        g, kind = graph_from_edges(34, KARATE_EDGES, name="karate"), "dense"
+        # the wide case: 8 label times keep the old path's trajectory small
+        batch, model = ((65_539, GNODE(hidden=8, max_time=8)) if case == "karate_dense_wide"
+                        else (3, GNODE(hidden=16)))
+    params = {k: {kk: vv.to(cuda_device) for kk, vv in v.items()}
+              for k, v in model.init(torch.Generator().manual_seed(1), device="cpu").items()}
+    adj = adjacency_from_graph(g, kind=kind, device=cuda_device)
+    rng = np.random.default_rng(2)
+    i0 = np.zeros((batch, g.n_nodes), np.float32)
+    seeds = np.argsort(rng.random((batch, g.n_nodes)), axis=1)[:, :2]  # two distinct nodes
+    np.put_along_axis(i0, seeds, 1.0, axis=1)
+    xs = [torch.as_tensor(a, device=cuda_device) for a in
+          (1 - i0, i0, np.zeros_like(i0), rng.uniform(0.1, 0.5, batch).astype(np.float32),
+           rng.uniform(0.1, 0.5, batch).astype(np.float32))]
+    evaluations = len(model.ts) - 1
+    with torch.inference_mode():
+        launches = (spmm2.launches, gnode_step.launches)
+        got = model.predict(params, adj, *xs)
+        k1, k3 = spmm2.launches - launches[0], gnode_step.launches - launches[1]
+        traj = model._trajectory(params, adj, *xs)
+        idx = torch.as_tensor(integer_time_indices(model.max_time, model.delta_t),
+                              dtype=torch.long, device=cuda_device)
+        want = _decode(params, tuple(c[idx] for c in traj))
+    torch.cuda.synchronize()
+    assert k3 == evaluations
+    assert k1 == (evaluations if kind == "pallas2" else 0)
+    assert torch.isfinite(want).all()
+    assert torch.equal(got, want)
