@@ -1,11 +1,14 @@
 """Serving entry point: score what-if scenarios with trained GN-ODE, GCN or
-GIN params (port of ``gn_ode_sir_tpu.cli.infer``).
+GIN params (port of ``gn_ode_sir_tpu.cli.infer``), or with the closed-form
+DMP predictor, which has no parameters and takes no ``--ckpt``.
 
   python -m gn_ode_sir_tpu_torch.cli.infer --device cuda \
       --ckpt <dir holding serve.pt> \
       --dataset ./real_graphs/karate --model ode_nn --hidden 64 \
       --I_indices "[2, 5]" "[7]" --beta 0.3 0.2 --gamma 0.1 0.4 \
       --out predictions.npz
+  python -m gn_ode_sir_tpu_torch.cli.infer --model dmp --dataset ... \
+      --maxTime 20 --I_indices "[2, 5]" --summary_only
 
 Every scenario (seed-set, beta, gamma) is one row of a batched
 ``model.predict`` dispatch; ``--dispatch_batch`` caps the rows per dispatch.
@@ -51,10 +54,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Score (seed-set, beta, gamma) scenarios with trained "
                     "GN-ODE params — the serving entry point (PyTorch/CUDA port)")
-    p.add_argument("--ckpt", required=True,
-                   help="checkpoint dir holding serve.pt (train.checkpoint.save_params)")
+    p.add_argument("--ckpt", default=None,
+                   help="checkpoint dir holding serve.pt (train.checkpoint.save_params); "
+                        "every model but dmp needs one")
     p.add_argument("--dataset", required=True)
-    p.add_argument("--model", default=w("model"), choices=["ode_nn", "GCN", "GIN"])
+    p.add_argument("--model", default=w("model"), choices=["ode_nn", "GCN", "GIN", "dmp"])
     # architecture knobs — MUST match the training run
     p.add_argument("--hidden", type=int, default=w("hidden"))
     p.add_argument("--method", default=w("method"))
@@ -209,12 +213,20 @@ _upload.upload_bytes = 0
 _upload.calls = 0
 
 
+def _device_of(params, adj) -> torch.device:
+    """Where a dispatch runs: the params' device, or, for a model without
+    parameters (DMP), its adjacency's."""
+    for _, leaf in tree_leaves(params):
+        return leaf.device
+    return adj.device
+
+
 def _dispatch(model, params, adj, arrays, reduce_fn=None) -> np.ndarray:
     """One device dispatch: numpy scenario arrays in, numpy out. Under a
     profiler its spans ``serve.upload``, ``serve.forward`` (prediction and
     reduction) and ``serve.readback`` (where the host waits for what the card
     has left to do)."""
-    dev = next(leaf for _, leaf in tree_leaves(params)).device
+    dev = _device_of(params, adj)
     with torch.inference_mode():
         with span("serve.upload"):
             xs = _upload(arrays, dev)
@@ -251,7 +263,7 @@ def _spmd_dispatch(model, params, adj, arrays, *, summary: bool) -> np.ndarray:
     pad = (-b) % world
     if pad:
         arrays = [np.concatenate([a, np.repeat(a[-1:], pad, 0)], 0) for a in arrays]
-    dev = next(leaf for _, leaf in tree_leaves(params)).device
+    dev = _device_of(params, adj)
     predict = make_spmd_predict_fn(model, lambda gi: adj, _serving_mesh(dev.type),
                                    reduce_fn=_summary_reduce if summary else None)
     out = predict(params, dict(zip(("s0", "i0", "r0", "beta", "gamma"), arrays)))
@@ -352,8 +364,15 @@ def _serve(args, device) -> int:
     # the solver policy is sized for what one DISPATCH holds
     dispatch_b = min(len(seeds), args.dispatch_batch or len(seeds))
     model, adj = build_model_and_adj(args, g, batch_size=dispatch_b, device=device)
-    params = restore_params(args.ckpt, device=device)
-    check_params_match(model, params)
+    if args.model == "dmp":
+        if args.ckpt is not None:
+            raise SystemExit("--model dmp has no parameters: drop --ckpt")
+        params = {}
+    else:
+        if args.ckpt is None:
+            raise SystemExit(f"--model {args.model} needs --ckpt")
+        params = restore_params(args.ckpt, device=device)
+        check_params_match(model, params)
     s0, i0, r0, beta, gamma = scenario_batch(g.n_nodes, seeds, beta, gamma)
     writer = not args.spmd or not dist.is_initialized() or dist.get_rank() == 0
     if args.summary_only:

@@ -180,8 +180,15 @@ def build_model_and_adj(args, g, *, batch_size=None, device=None):
     a dense matrix up to ``DENSE_NODE_THRESHOLD`` nodes and above it K1 with
     the normalized weights (where the JAX package takes its COO segment sum:
     the port takes for GCN what its ``auto`` takes for GN-ODE there). GIN
-    takes the raw-sum ``auto`` adjacency."""
+    takes the raw-sum ``auto`` adjacency. DMP, which has no parameters and
+    is no trainable model, is served with its edge structure on ``device``
+    as the adjacency."""
     device = resolve_device(args.device) if device is None else torch.device(device)
+    if args.model == "dmp":
+        from gn_ode_sir_tpu_torch.models import DMPSIR
+
+        model = DMPSIR.from_graph(g, max_time=args.maxTime)
+        return model, model.edges(device)
     model = build_model(args, g.n_nodes, batch_size=batch_size, device=device)
     return model, _adjacency(args, g, device)
 

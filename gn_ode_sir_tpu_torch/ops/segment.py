@@ -20,8 +20,10 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 def segment_prod(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                  dim: int = 0) -> torch.Tensor:
     """Product-reduce slices of ``data`` along ``dim`` into ``num_segments``
-    buckets (DMP's cavity aggregation). An empty segment gives 1, the
-    multiplicative identity."""
+    buckets (DMP's node product). An empty segment gives 1, the
+    multiplicative identity. ``segment_prod.calls`` counts the calls since
+    import."""
+    segment_prod.calls += 1
     shape = list(data.shape)
     shape[dim] = num_segments
     out = torch.ones(shape, dtype=data.dtype, device=data.device)
@@ -29,3 +31,6 @@ def segment_prod(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: in
     view[dim] = -1
     index = segment_ids.long().view(view).expand_as(data)
     return out.scatter_reduce_(dim, index, data, "prod", include_self=True)
+
+
+segment_prod.calls = 0

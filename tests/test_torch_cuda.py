@@ -700,3 +700,37 @@ def test_fused_predict_on_card_is_the_old_path(cuda_device, case):
     assert k1 == (evaluations if kind == "pallas2" else 0)
     assert torch.isfinite(want).all()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_dmp_serving_on_card_matches_cpu(cuda_device):
+    """DMP through ``cli.infer``'s dispatch on the card against the same
+    dispatch on the CPU, 1e-5: the node product's scatter multiplies in the
+    order its atomics land, so the card rounds otherwise. The edge structure
+    is built once per device; a dispatch uploads the scenario arrays only."""
+    from gn_ode_sir_tpu_torch.cli import infer
+    from gn_ode_sir_tpu_torch.models.dmp import DMPSIR, dmp_recursion
+
+    g = _powerlaw_graph(n=2_000, m=12_000)
+    g = graph_from_edges(g.n_nodes, np.stack([g.src, g.dst], 1), name="powerlaw")  # undirected
+    model = DMPSIR.from_graph(g, max_time=20)
+    rng = np.random.default_rng(3)
+    seeds = [sorted(rng.choice(g.n_nodes, 2, replace=False)) for _ in range(16)]
+    arrays = infer.scenario_batch(g.n_nodes, seeds, rng.uniform(0.1, 0.5, 16),
+                                  rng.uniform(0.1, 0.5, 16))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        adj = model.edges(dev)
+        assert adj is model.edges(dev) and adj.src.device.type == torch.device(dev).type
+        before, uploaded = dmp_recursion.edge_updates, infer._upload.upload_bytes
+        out[str(dev)] = (infer.predict_scenarios(model, {}, adj, *arrays, dispatch_batch=8),
+                         infer.predict_summaries(model, {}, adj, *arrays, dispatch_batch=8))
+        assert dmp_recursion.edge_updates - before == 2 * 16 * g.n_edges * 19
+        assert infer._upload.upload_bytes - uploaded == 2 * sum(a.nbytes for a in arrays)
+    (probs, rows), (probs_cpu, rows_cpu) = out["cuda"], out["cpu"]
+    assert probs.shape == (20, 16, g.n_nodes, 3)
+    np.testing.assert_allclose(probs, probs_cpu, rtol=RTOL, atol=ATOL)
+    for a, b in zip(rows, rows_cpu):
+        assert a["peak_time"] == b["peak_time"]
+        for k in ("peak_infected_frac", "final_recovered_frac"):
+            assert a[k] == pytest.approx(b[k], abs=ATOL)
