@@ -21,7 +21,10 @@ version. Phases, each printed as one JSON line:
    launch, with the count product timed beside it and checked for exactness
    on the hub), K1-bwd (the gradient through the autograd Function, and the
    Function's forward), K3 (the fused euler SIR update of the no-grad
-   forward, bit for bit, at serving's shape); K1 and K1-bwd also at the
+   forward, bit for bit, at serving's shape), K4 and K5 (DMP's fused edge
+   update and marginals, bit for bit against their plain versions fed the
+   same node product, at the DMP serving cell's [128, n, E]); K1 and K1-bwd
+   also at the
    multi-graph shapes: width
    8 (the published multi-graph hidden) and 5 (GIN's first layer), plans
    padded to the train view's and the evaluation graph's width, with and
@@ -30,7 +33,9 @@ version. Phases, each printed as one JSON line:
    seeded random params, scored through ``cli.worker``/``cli.infer``:
    16 summary scenarios in dispatches of 8 and 2 full-trajectory scenarios,
    K1 launch counts per dispatch (and as many of K3's), and the card's
-   output against the same path on the CPU;
+   output against the same path on the CPU; then DMP's serving path, one
+   dispatch of 128 scenarios on the same graph: K4, K5 and the node
+   product 19 times each, the first summaries against the CPU's;
 5. labels — Monte-Carlo labels of six trials (10,000 simulations each)
    through ``utils.load_or_extract_labels_many``: K2 launch counts, label
    invariants, and a second call that is a pure cache hit;
@@ -48,7 +53,7 @@ version. Phases, each printed as one JSON line:
 8. baselines — on the wiki-vote-size graph, ``--model GCN`` and ``GIN`` (one
    epoch each, a step against the CPU, the checkpoint served), ``--model
    dmp`` and ``--model rk`` through ``cli.worker.main``, DMP and RK on the
-   card against the CPU;
+   card against the CPU, with K4's and K5's launches (one each a step);
 9. matrix — the experiment matrix (ensembles, crash and resume, backsolve,
    adaptive dopri5, the node split);
 10. parallel — ``parallel/`` at world size 1 over NCCL: the data-parallel
@@ -90,7 +95,10 @@ from gn_ode_sir_tpu_torch.graphs.graph import Graph, graph_from_edges
 from gn_ode_sir_tpu_torch.models import DMPSIR, GCN, GIN, GNODE, TimeUnrolledSIR
 from gn_ode_sir_tpu_torch.ops import _kernels, gcn_norm_edges
 from gn_ode_sir_tpu_torch.ops import spmm2 as spmm2_module
+from gn_ode_sir_tpu_torch.ops.dmp_step import (dmp_marginals, dmp_marginals_plain, dmp_step,
+                                               dmp_step_plain)
 from gn_ode_sir_tpu_torch.ops.gnode_step import gnode_step, gnode_step_plain
+from gn_ode_sir_tpu_torch.ops.segment import segment_prod
 from gn_ode_sir_tpu_torch.ops.spmm2 import (SEGMENT_EDGES, CsrPlan, Spmm2Adj, spmm2,
                                             spmm2_plain)
 from gn_ode_sir_tpu_torch.sim import classical, mc_sir, sir_classical_batch
@@ -140,6 +148,7 @@ NARROW_SWEEP_WIDTHS = (*range(1, 18), 24, 31, 32)
 WIKI, FB_SOCIAL, FB_FOOD = 4, 2, 1  # positions in MG_GRAPH_SIZES
 BASELINE_HIDDEN = 64
 DMP_ATOL = 1e-5  # DMP marginals, card vs CPU
+DMP_BATCH = 128  # the DMP serving cell's scenarios a dispatch
 RK_ATOL = 1e-4  # RK trajectories, card vs CPU
 MATRIX_K = 4  # ensemble members: the published hidden_dim_array=(8, 8, 8, 8)
 ENSEMBLE_LOSS_ATOL = 1e-5  # member j vs the sequential fit with init seed j
@@ -710,6 +719,59 @@ def phase_kernel_k3(graph) -> tuple[dict, list]:
     return rows[0], rows[1:]
 
 
+def phase_kernel_dmp(graph) -> tuple[dict, dict]:
+    """K4 (DMP's edge update) and K5 (its marginals) against their plain
+    versions on the card at [128, n, E], bit for bit, both fed one node
+    product, with kernel, device-alone and plain times and the bounds: K4
+    reads theta, phi and Ps_ij and writes phi, Ps_ij and the next theta once
+    (24 B an edge update), the int32 edge indices and the node arrays once;
+    K5 reads Ps(0), the node product and the marginals at t - 1 and writes
+    those at t and the pair (node, Ps(0)) that K4 gathers (36 B a node)."""
+    dev = torch.device("cuda")
+    model = DMPSIR.from_graph(graph)
+    edges = model.edges(dev)
+    b, n, e = DMP_BATCH, graph.n_nodes, graph.n_edges
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rand = lambda *shape, lo=0.0, hi=1.0: lo + (hi - lo) * torch.rand(*shape, generator=g,
+                                                                     device=dev)
+    theta, phi, ps_ij = rand(b, e, lo=0.4), rand(b, e, hi=0.3), rand(b, e)
+    ps_0, prev = rand(b, n), rand(b, n, 3)
+    w, gamma = rand(b, 1, lo=0.1, hi=0.5), rand(b, 1, lo=0.1, hi=0.5)
+    node = segment_prod(theta, edges.dst, n, dim=-1)
+    out, want_out = torch.empty_like(prev), torch.empty_like(prev)
+    pair, want_pair = torch.empty((b, n, 2), device=dev), torch.empty((b, n, 2), device=dev)
+    dmp_marginals(out, prev, node, ps_0, gamma, pair)
+    dmp_marginals_plain(want_out, prev, node, ps_0, gamma, want_pair)
+    nxt, want_nxt = torch.empty_like(theta), torch.empty_like(theta)
+    got, want = (phi.clone(), ps_ij.clone()), (phi.clone(), ps_ij.clone())
+    dmp_step(theta, nxt, *got, pair, w, gamma, edges.src, edges.reverse)
+    dmp_step_plain(theta, want_nxt, *want, want_pair, w, gamma, edges.src, edges.reverse)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, want_out) and torch.equal(pair, want_pair)
+            and torch.equal(nxt, want_nxt) and all(torch.equal(x, y) for x, y in zip(got, want))):
+        raise AssertionError("K4 or K5 is not its plain version's bits")
+    k4_bytes = 24 * b * e + 8 * e + 8 * b * n + 8 * b
+    k5_bytes = 36 * b * n + 4 * b
+    k4 = lambda: dmp_step(theta, nxt, *got, pair, w, gamma, edges.src, edges.reverse)
+    k5 = lambda: dmp_marginals(out, prev, node, ps_0, gamma, pair)
+    rows = []
+    for name, call, plain, moved in (
+            ("dmp_step", k4, lambda: dmp_step_plain(theta, want_nxt, *want, want_pair, w, gamma,
+                                                    edges.src, edges.reverse), k4_bytes),
+            ("dmp_marginals", k5, lambda: dmp_marginals_plain(want_out, prev, node, ps_0, gamma,
+                                                              want_pair), k5_bytes)):
+        row = {"phase": "kernel", "kernel": name, "case": "dmp_serve",
+               "shape": [b, n, e], "bit_equal": True, "max_abs_err": 0.0, "bytes": moved,
+               "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "kernel_ms": time_ms(call, 50), "device_ms": graph_replay_ms(call),
+               "plain_ms": time_ms(plain, 10), "library_ms": None, "ok": True}
+        emit(row)
+        rows.append(row)
+    del theta, phi, ps_ij, nxt, want_nxt, got, want, pair, want_pair
+    torch.cuda.empty_cache()
+    return rows[0], rows[1]
+
+
 def phase_serve(graph) -> dict:
     argv = ["--model", "ode_nn", "--hidden", "64", "--method", "euler",
             "--deltaT", "0.5", "--maxTime", "20", "--spmm", "auto"]
@@ -789,6 +851,49 @@ def phase_serve(graph) -> dict:
            "k3_launches": k3_launches,
            "peak_memory_gb": peak_gb, "cpu_reference_s": cpu_s,
            "max_abs_err_vs_cpu": err, "atol": SERVE_ATOL, "ok": True}
+    emit(row)
+    return row
+
+
+def phase_serve_dmp(graph) -> dict:
+    """DMP's serving path, ``cli.infer.predict_summaries`` on
+    ``DMPSIR.predict``, one dispatch of the DMP cell's 128 scenarios on the
+    enron-size graph: a node product, K5 and K4 a step (19 each, counted from
+    0 just before the dispatch), and its first scenarios' summaries against
+    the CPU's."""
+    model = DMPSIR.from_graph(graph)
+    t0 = time.perf_counter()
+    adj = model.edges("cuda")
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng([SEED, 15])
+    seeds = [sorted(rng.choice(graph.n_nodes, 3, replace=False).tolist())
+             for _ in range(DMP_BATCH)]
+    sb = infer.scenario_batch(graph.n_nodes, seeds, rng.uniform(0.1, 0.5, DMP_BATCH),
+                              rng.uniform(0.05, 0.3, DMP_BATCH))
+    infer.predict_summaries(model, {}, adj, *sb)  # warm-up: the kernels' library, the allocator
+    torch.cuda.synchronize()
+    dmp_step.launches = dmp_marginals.launches = segment_prod.calls = 0  # the path starts here
+    t0 = time.perf_counter()
+    rows = infer.predict_summaries(model, {}, adj, *sb)
+    dispatch_s = time.perf_counter() - t0
+    launches = (dmp_step.launches, dmp_marginals.launches, segment_prod.calls)  # and ends here
+    steps = model.max_time - 1
+    if launches != (steps,) * 3:
+        raise AssertionError(f"DMP serving: K4, K5 and node products {launches}, not {steps} "
+                             "each in one dispatch")
+    few = tuple(a[:2] for a in sb)
+    want = infer.predict_summaries(model, {}, model.edges("cpu"), *few)
+    err = max(abs(a[k] - b[k]) for a, b in zip(rows, want)
+              for k in ("peak_infected_frac", "final_recovered_frac"))
+    if (len(rows) != DMP_BATCH or any(a["peak_time"] != b["peak_time"] for a, b in zip(rows, want))
+            or not err <= DMP_ATOL):
+        raise AssertionError(f"DMP serving on the card vs the CPU: {err}")
+    row = {"phase": "serve_dmp", "n": graph.n_nodes, "edges": graph.n_edges,
+           "dispatch_batch": DMP_BATCH, "max_time": model.max_time, "setup_s": setup_s,
+           "dispatch_s": dispatch_s, "scenarios_per_s": DMP_BATCH / dispatch_s,
+           "k4_launches": launches[0], "k5_launches": launches[1],
+           "node_products": launches[2], "max_abs_err_vs_cpu": err, "atol": DMP_ATOL,
+           "ok": True}
     emit(row)
     return row
 
@@ -1307,13 +1412,18 @@ def phase_baselines(wiki, small, save_dir) -> dict:
                        "cpu_step_s": time.perf_counter() - t0}
 
     # DMP: the worker's run, and run_many on the card against run on the CPU
+    dmp_step.launches = dmp_marginals.launches = 0  # the DMP baseline's path starts here
     _, out["dmp_seconds"] = run_worker(["--model", "dmp", *common], wiki)
     row = one_row("dmp")
     out["dmp_test_loss"], out["dmp_inference_s"] = float(row["test_loss"]), float(row["n_ode_time"])
     dmp = DMPSIR.from_graph(wiki)
     many = dmp.run_many([t[0] for t in trials], [t[1] for t in trials], [t[2] for t in trials],
                         max_time=MAX_TIME, device="cuda").cpu()
+    out["k4_launches"], out["k5_launches"] = dmp_step.launches, dmp_marginals.launches
     ones = torch.stack([dmp.run(*t, max_time=MAX_TIME, device="cpu") for t in trials])
+    if out["k4_launches"] != out["k5_launches"] or out["k4_launches"] % (MAX_TIME - 1):
+        raise AssertionError(f"DMP on the card: {out['k4_launches']} K4 and "
+                             f"{out['k5_launches']} K5 launches, not one each a step")
     out["dmp_max_abs_err_vs_cpu"] = float((many - ones).abs().max())
     if (many.shape != (len(trials), MAX_TIME, wiki.n_nodes, 3)
             or not out["dmp_max_abs_err_vs_cpu"] <= DMP_ATOL
@@ -2278,12 +2388,14 @@ def main() -> int:
     k1, k1_mg = phase_kernel(graph, mg_graphs)
     k2 = phase_kernel_k2(graph, trials[:chunk])
     k3, k3_label = phase_kernel_k3(graph)
+    k4, k5 = phase_kernel_dmp(graph)
     k1b, k1b_mg = phase_kernel_bwd(graph, mg_graphs)
     emit(narrow_summary(k1_mg + k1b_mg))
     shard_fwd, shard_bwd = phase_kernel_shards(graph)
     phase_ell(graph)
     phase_native(graph)
     serve = phase_serve(graph)
+    serve_dmp = phase_serve_dmp(graph)
     with tempfile.TemporaryDirectory() as root:
         # the reference's layout, so that the matrix's jobs find the labels
         save_dir = os.path.join(root, f"Experiments-seed2-{graph.name}")
@@ -2299,7 +2411,7 @@ def main() -> int:
             matrix["multigraph"] = matrix_multigraph(mg_graphs, mg_dir)
             emit({"phase": "matrix", **matrix["multigraph"], "ok": True})
         with tempfile.TemporaryDirectory() as baselines_dir:
-            phase_baselines(mg_graphs[WIKI], mg_graphs[FB_SOCIAL], baselines_dir)
+            baselines = phase_baselines(mg_graphs[WIKI], mg_graphs[FB_SOCIAL], baselines_dir)
         # last, so that the profiler's tracing cannot touch the times of the
         # phases before it; the same seeded graph, whose labels are cached
         # in save_dir
@@ -2310,7 +2422,7 @@ def main() -> int:
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
     # launches: those of the main paths (serving, labels, single-graph and
-    # multi-graph training); `cases`: the same kernel at the multi-graph shapes
+    # multi-graph training, DMP serving and the DMP baseline); `cases`: the same kernel at the multi-graph shapes
     kernel = lambda name, source, replaces, launches, row, more=(): {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, **times(row), "cases": [times(r) for r in more]}
@@ -2328,7 +2440,11 @@ def main() -> int:
                labels["k2_launches"] + mg["k2_launches"]
                + matrix["node_split"]["k2_launches"] + parallel["k2_launches"], k2),
         kernel("gnode_step", "gn_ode_sir_tpu_torch/csrc/gnode_step.cu", None,
-               sum(p["k3_launches"] for p in (serve, *paths)), k3, k3_label)]})
+               sum(p["k3_launches"] for p in (serve, *paths)), k3, k3_label),
+        kernel("dmp_step", "gn_ode_sir_tpu_torch/csrc/dmp_step.cu", None,
+               serve_dmp["k4_launches"] + baselines["k4_launches"], k4),
+        kernel("dmp_marginals", "gn_ode_sir_tpu_torch/csrc/dmp_step.cu", None,
+               serve_dmp["k5_launches"] + baselines["k5_launches"], k5)]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

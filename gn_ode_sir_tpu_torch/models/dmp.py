@@ -19,6 +19,12 @@ theta (1 where the edge has no reverse). The edge structure (``src``,
 ``dst``, the reverse edge) lives on the device in a :class:`DmpEdges`, built
 once per graph and device; rates stay per trial ([B] or [B, 1]) and
 broadcast on the device, or are given per edge / per node.
+
+A step takes the node product once (``segment_prod``, one
+``scatter_reduce_``) and then two fused kernels, ``ops/dmp_step.py``: K5
+writes the marginals into the output and K4 updates phi and Ps_ij in place
+and computes theta for the next step (on the CPU their plain versions,
+which :func:`_step` runs too, bit for bit).
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from gn_ode_sir_tpu_torch.ops.dmp_step import (cavity, dmp_marginals, dmp_marginals_plain,
+                                               dmp_step, dmp_step_plain)
 from gn_ode_sir_tpu_torch.ops.segment import segment_prod
 
 
@@ -49,14 +57,14 @@ def cave_index(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class DmpEdges:
-    """The recursion's edge structure on one device: ``src``, ``dst`` and
-    ``reverse`` (each edge's reverse edge, 0 where it has none) as long
-    tensors [E], ``no_reverse`` (bool [E], None where every edge has one)."""
+    """The recursion's edge structure on one device: ``src`` and
+    ``reverse`` (each edge's reverse edge, -1 where it has none) as int32
+    tensors [E], the kernels' indices; ``dst`` as a long tensor [E], the node
+    product's scatter index."""
 
     src: torch.Tensor
     dst: torch.Tensor
     reverse: torch.Tensor
-    no_reverse: torch.Tensor | None
     n_nodes: int
 
     @classmethod
@@ -67,12 +75,9 @@ class DmpEdges:
         E = src.shape[0]
         if E and np.bincount(cave, minlength=E + 1)[:E].max() > 1:
             raise ValueError("DMP needs a graph without repeated directed edges")
-        missing = cave == E
         on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
-        return cls(src=on(src, torch.long), dst=on(dst, torch.long),
-                   reverse=on(np.where(missing, 0, cave), torch.long),
-                   no_reverse=on(missing, torch.bool) if missing.any() else None,
-                   n_nodes=int(n_nodes))
+        return cls(src=on(src, torch.int32), dst=on(dst, torch.long),
+                   reverse=on(np.where(cave == E, -1, cave), torch.int32), n_nodes=int(n_nodes))
 
     @property
     def device(self) -> torch.device:
@@ -86,37 +91,79 @@ class DmpEdges:
 def _cavity(theta: torch.Tensor, edges: DmpEdges) -> torch.Tensor:
     """The reverse edge's theta for every edge, 1 where there is none: the
     one factor each cavity product leaves out of the node's full product."""
-    rev = theta.index_select(-1, edges.reverse)
-    return rev if edges.no_reverse is None else rev.masked_fill_(edges.no_reverse, 1.0)
+    return cavity(theta, edges.reverse)
 
 
 @dataclasses.dataclass(frozen=True)
 class _Constants:
-    """What every step reads: the edges, the rates, Ps(0) at the nodes and
-    at each edge's source, and phi's decay (1 - w)(1 - gamma_src)."""
+    """What every step of :func:`_step` reads: the edges, the rates and
+    Ps(0) at the nodes, each [trials, ...]."""
 
     edges: DmpEdges
     w: torch.Tensor
     gamma: torch.Tensor
     ps_0: torch.Tensor
-    ps_i0: torch.Tensor
-    decay: torch.Tensor
 
 
-def _step(theta, phi, ps_ij, pr, pi, c, *, first: bool):
-    """One time step. In: theta at t-1 (1 before the first step), phi and
-    Ps_ij at t-1, the marginals Pr and Pi at t-1. Out: theta, phi, Ps_ij at t
-    and the marginals (Ps, Pi, Pr) at t."""
+def _step(theta, phi, ps_ij, prev, c, *, first: bool):
+    """One time step, by the plain versions of K5 and K4. In: theta at t-1
+    (1 before the first step), phi and Ps_ij at t-1, the marginals [trials,
+    n, 3] at t-1. Out: theta, phi, Ps_ij and the marginals at t."""
     theta = theta - c.w * phi
     if first:
         theta = theta + 1e-10  # the reference's guard at t = 1
     node = segment_prod(theta, c.edges.dst, c.edges.n_nodes, dim=-1)
-    new_ps_ij = c.ps_i0 * (node.index_select(-1, c.edges.src) / _cavity(theta, c.edges))
-    phi = c.decay * phi - (new_ps_ij - ps_ij)
-    ps_t = c.ps_0 * node
-    pr_t = pr + c.gamma * pi
-    pi_t = 1.0 - ps_t - pr_t
-    return theta, phi, new_ps_ij, (ps_t, pi_t, pr_t)
+    marg, pair = node.new_empty((*node.shape, 3)), node.new_empty((*node.shape, 2))
+    dmp_marginals_plain(marg, prev, node, c.ps_0, c.gamma, pair)
+    phi, ps_ij = phi.clone(), ps_ij.clone()
+    dmp_step_plain(theta, None, phi, ps_ij, pair, c.w, c.gamma, c.edges.src, c.edges.reverse,
+                   cav=_cavity(theta, c.edges))
+    return theta, phi, ps_ij, marg
+
+
+_OWN_STEP, _OWN_CAVITY = _step, _cavity
+
+
+def _fused() -> bool:
+    """Whether :func:`dmp_recursion` takes the node product, K5 and K4
+    (their plain versions on the CPU): whenever :func:`_step` and
+    :func:`_cavity` are the module's own.
+
+    The benchmark's DMP faults and control replace ``_step`` or ``_cavity``,
+    so under them the recursion loops :func:`_step`, not the kernels. A
+    stopgap, as for K3 (PERF.md, Open questions): it goes once they are
+    planted on ``ops.dmp_step``."""
+    return _step is _OWN_STEP and _cavity is _OWN_CAVITY
+
+
+def _fused_steps(out, edges: DmpEdges, w, gamma, ps_0, max_time: int) -> None:
+    """Steps 1 .. max_time - 1 into ``out`` [max_time, B, n, 3] (``out[0]``
+    written): the node product, K5 (which also puts the node product and
+    Ps(0) side by side, K4's one gather at an edge's source), K4 a step.
+    theta at t = 1 (with the reference's guard) comes from the plain ops,
+    once."""
+    n = ps_0.shape[-1]
+    ps_ij = ps_0.index_select(-1, edges.src)  # Ps_ij(0) = Ps_i(0), then in place
+    phi = 1.0 - ps_ij
+    theta = (1.0 - w * phi) + 1e-10  # the reference's guard at t = 1
+    spare = torch.empty_like(theta) if max_time > 2 else None
+    pair = torch.empty((*ps_0.shape, 2), dtype=ps_0.dtype, device=ps_0.device)
+    for t in range(1, max_time):
+        node = segment_prod(theta, edges.dst, n, dim=-1)
+        dmp_marginals(out[t], out[t - 1], node, ps_0, gamma, pair)
+        last = t == max_time - 1
+        dmp_step(theta, None if last else spare, phi, ps_ij, pair, w, gamma, edges.src,
+                 edges.reverse)
+        theta, spare = spare, theta
+
+
+def _step_loop(out, edges: DmpEdges, w, gamma, ps_0, max_time: int) -> None:
+    """What :func:`_fused_steps` computes, a :func:`_step` a time step."""
+    c = _Constants(edges=edges, w=w, gamma=gamma, ps_0=ps_0)
+    ps_ij = ps_0.index_select(-1, edges.src)
+    theta, phi = torch.ones((), dtype=ps_0.dtype, device=ps_0.device), 1.0 - ps_ij
+    for t in range(1, max_time):
+        theta, phi, ps_ij, out[t] = _step(theta, phi, ps_ij, out[t - 1], c, first=t == 1)
 
 
 def dmp_recursion(edges: DmpEdges, w, gamma, seeds, *, max_time: int) -> torch.Tensor:
@@ -131,22 +178,14 @@ def dmp_recursion(edges: DmpEdges, w, gamma, seeds, *, max_time: int) -> torch.T
     n = edges.n_nodes
     out = torch.empty((max_time, *lead, n, 3), dtype=seeds.dtype, device=seeds.device)
     ps_0 = 1.0 - seeds
-    pi_0 = seeds
-    pr_0 = torch.zeros_like(seeds)
-    torch.stack([ps_0, pi_0, pr_0], dim=-1, out=out[0])
+    torch.stack([ps_0, seeds, torch.zeros_like(seeds)], dim=-1, out=out[0])
     if max_time == 1:
         return out
-    ps_i0 = ps_0.index_select(-1, edges.src)
-    gamma_src = gamma if gamma.shape[-1] == 1 else gamma.index_select(-1, edges.src)
-    c = _Constants(edges=edges, w=w, gamma=gamma, ps_0=ps_0, ps_i0=ps_i0,
-                   decay=(1.0 - w) * (1.0 - gamma_src))
-    theta = torch.ones((), dtype=seeds.dtype, device=seeds.device)
-    phi, ps_ij, pr, pi = 1.0 - ps_i0, ps_i0, pr_0, pi_0
-    for t in range(1, max_time):
-        theta, phi, ps_ij, marg = _step(theta, phi, ps_ij, pr, pi, c, first=t == 1)
-        torch.stack(marg, dim=-1, out=out[t])
-        _, pi, pr = marg
     trials = int(np.prod(lead, dtype=np.int64))
+    flat = lambda x: x.expand(*lead, x.shape[-1]).reshape(trials, x.shape[-1])
+    steps = _fused_steps if _fused() else _step_loop
+    steps(out.view(max_time, trials, n, 3), edges, flat(w), flat(gamma),
+          flat(ps_0).contiguous(), max_time)
     dmp_recursion.edge_updates += (max_time - 1) * trials * edges.n_edges
     return out
 

@@ -12,6 +12,9 @@
   large-graph path, built from ``csrc/`` by ``ops._kernels`` at first use.
 - ``gnode_step`` (``ops.gnode_step``) — K3, the GN-ODE's euler SIR update
   of the no-grad forward as one CUDA kernel, and its plain version.
+- ``dmp_step`` / ``dmp_marginals`` (``ops.dmp_step``) — K4 and K5, DMP's
+  edge update and marginals around the node product as CUDA kernels, and
+  their plain versions.
 """
 
 from gn_ode_sir_tpu_torch.ops.segment import segment_prod, segment_sum

@@ -4,9 +4,10 @@ Each source in ``gn_ode_sir_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with ``ctypes``. The build happens at first use, never at import,
 into ``gn_ode_sir_tpu_torch/_build/`` (listed in ``.gitignore``); the
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a fresh checkout builds everything on its first call.
-:func:`build_all` starts one ``nvcc`` per source at once.
+library is named after its source and carries a hash of the source and the
+flags, so an edited source is rebuilt and a fresh checkout builds everything
+on its first call. Kernels whose entry points share a source share its
+library. :func:`build_all` starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ KERNELS = {
                  [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _U, _P]),
     "gnode_step": ("gnode_step.cu", "gnode_step",
                    [_P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _L, _I, _P]),
+    "dmp_edge_step": ("dmp_step.cu", "dmp_edge_step",
+                      [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _L, _I, _I, _I, _I, _P]),
+    "dmp_marginals": ("dmp_step.cu", "dmp_marginals",
+                      [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
 }
 
 _FUNCS: dict[str, ctypes._CFuncPtr] = {}
@@ -64,7 +69,7 @@ def library_path(name: str) -> Path:
     src = CSRC_DIR / KERNELS[name][0]
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
 def _short_entry(mangled: str) -> str:
@@ -99,7 +104,7 @@ def build_all(names=None) -> dict:
     for the kernels built (``ptxas`` holds the register/spill report).
     Raises RuntimeError with the compiler output if any build fails."""
     names = list(KERNELS) if names is None else list(names)
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = list({library_path(n): n for n in names if not library_path(n).exists()}.values())
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

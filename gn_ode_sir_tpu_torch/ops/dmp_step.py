@@ -1,0 +1,201 @@
+"""K4 and K5: DMP's time step around the node product, as two CUDA kernels.
+
+One step of ``models/dmp.py::dmp_recursion`` from t - 1 to t, per scenario,
+after the node product ``node = segment_prod(theta(t), dst, n)``:
+
+    K5 (:func:`dmp_marginals`), per node, into out[t] [B, n, 3]:
+        Ps = Ps(0) * node,  Pr = Pr(t-1) + gamma * Pi(t-1),  Pi = 1 - Ps - Pr
+        and (node, Ps(0)) side by side into ``pair`` [B, n, 2], for K4
+    K4 (:func:`dmp_step`), per directed edge e = i -> j:
+        Ps_ij = Ps_i(0) * (node[i] / theta[reverse(e)])   (1 where e has none)
+        phi   = (1 - w)(1 - gamma_i) * phi - (Ps_ij - Ps_ij(t-1))
+        theta(t+1) = theta(t) - w * phi
+
+``phi`` and ``ps_ij`` are updated in place; theta at t + 1 goes to a second
+buffer (the cavity gather reads other edges' theta at t), or nowhere at the
+last step. Rates are per scenario ([B, 1]) or per edge / per node ([B, E] /
+[B, n]); a leading 1 broadcasts over the scenarios.
+
+They replace no TPU kernel: the JAX package leaves DMP's step to XLA, which
+fuses it on the TPU; in eager PyTorch it was about twelve passes over
+[B, E] and six node-sized kernels and a stack. The kernels,
+``gn_ode_sir_tpu_torch/csrc/dmp_step.cu``, read theta, phi and Ps_ij once
+and write them once (24 B an edge update, with the edge indices about
+28-32 B): 0.33 ms for K4 at [128, 361,622] at an H100's 3.35 TB/s. Its two
+gathers (theta of the reverse edge, the pair at the source) are random within
+a scenario's row, which the L2 holds; they, not HBM, bound it (the source's
+notes).
+
+Beside them, their plain PyTorch versions, :func:`dmp_step_plain` and
+:func:`dmp_marginals_plain`: the recursion's step in PyTorch ops, which
+``models/dmp.py::_step`` runs as they are. Every product, quotient and difference
+of the kernels rounds as these ops round, so, fed the same node product, the
+two give the same bits. The wrappers take the plain versions only for CPU
+tensors; a CUDA tensor launches the kernel or raises. ``dmp_step.launches``
+counts K4's launches, ``dmp_marginals.launches`` K5's (CPU calls do not
+count).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gn_ode_sir_tpu_torch.ops import _kernels
+
+
+def cavity(theta, reverse):
+    """The reverse edge's theta for every edge, 1 where ``reverse`` is -1:
+    the one factor each cavity product leaves out of the node's product."""
+    return theta.index_select(-1, reverse.clamp(min=0)).masked_fill_(reverse < 0, 1.0)
+
+
+def dmp_step_plain(theta, theta_next, phi, ps_ij, pair, w, gamma, src, reverse, *,
+                   cav=None) -> None:
+    """The plain PyTorch version of K4: the edge update from the node product
+    and Ps(0) in ``pair``, with theta at t + 1 written into ``theta_next``
+    (where given). ``cav``: the cavity factors, where the caller has its own
+    (``models/dmp.py::_step``); else :func:`cavity` of ``theta``."""
+    node, ps_0 = pair[..., 0], pair[..., 1]
+    cav = cavity(theta, reverse) if cav is None else cav
+    new_ps_ij = ps_0.index_select(-1, src) * (node.index_select(-1, src) / cav)
+    gamma_src = gamma if gamma.shape[-1] == 1 else gamma.index_select(-1, src)
+    decay = (1.0 - w) * (1.0 - gamma_src)
+    phi.copy_(decay * phi - (new_ps_ij - ps_ij))
+    ps_ij.copy_(new_ps_ij)
+    if theta_next is not None:
+        torch.sub(theta, w * phi, out=theta_next)
+
+
+def dmp_marginals_plain(out, prev, node, ps_0, gamma, pair) -> None:
+    """The plain PyTorch version of K5: the marginals at t from
+    those at t - 1, stacked into ``out``; (node, Ps(0)) into ``pair``."""
+    ps_t = ps_0 * node
+    pr_t = prev[..., 2] + gamma * prev[..., 1]
+    pi_t = 1.0 - ps_t - pr_t
+    torch.stack([ps_t, pi_t, pr_t], dim=-1, out=out)
+    torch.stack([node, ps_0], dim=-1, out=pair)
+
+
+def _shaped(name, t, shape, like):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {list(shape)}, got {list(t.shape)}")
+    if t.device != like.device:
+        raise ValueError(f"dmp_step: tensors on {t.device} and {like.device}")
+
+
+def _rate(name, t, b, last, like):
+    """A rate [B or 1, last or 1] on ``like``'s device."""
+    if t.dim() != 2 or t.shape[0] not in (1, b) or t.shape[1] not in (1, last):
+        raise ValueError(f"{name} must be [{b} or 1, {last} or 1], got {list(t.shape)}")
+    if t.device != like.device:
+        raise ValueError(f"dmp_step: tensors on {t.device} and {like.device}")
+
+
+def _strides(t) -> tuple[int, int]:
+    """(scenario stride, element stride) of a rate, 0 where it broadcasts."""
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError("dmp_step kernels take rates contiguous along their last axis")
+    return (0 if t.shape[0] == 1 else t.stride(0)), (0 if t.shape[1] == 1 else 1)
+
+
+def _launchable(name, tensors, contiguous, index=()) -> None:
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name} kernel takes float32 tensors, got "
+                        f"{sorted({str(t.dtype) for t in tensors})}")
+    if any(t.dtype != torch.int32 for t in index):
+        raise TypeError(f"{name} kernel takes int32 edge indices")
+    if not all(t.is_contiguous() for t in (*contiguous, *index)):
+        raise ValueError(f"{name} kernel takes contiguous tensors")
+
+
+def _call(name, like, *args) -> None:
+    fn = _kernels.kernel_function(name)
+    with torch.cuda.device(like.device):
+        err = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def _launch_step(theta, theta_next, phi, ps_ij, pair, w, gamma, src, reverse) -> None:
+    state = (theta, phi, ps_ij, pair) + (() if theta_next is None else (theta_next,))
+    _launchable("dmp_step", (*state, w, gamma), state, (src, reverse))
+    if theta_next is not None and theta_next.data_ptr() == theta.data_ptr():
+        raise ValueError("dmp_step writes theta at t + 1 beside theta at t, not over it")
+    if not theta.numel():
+        return
+    (b, e), n = theta.shape, pair.shape[1]
+    w_sb, w_se = _strides(w)
+    g_sb, g_sn = _strides(gamma)
+    _call("dmp_edge_step", theta, theta.data_ptr(),
+          None if theta_next is None else theta_next.data_ptr(), phi.data_ptr(),
+          ps_ij.data_ptr(), pair.data_ptr(), src.data_ptr(), reverse.data_ptr(), w.data_ptr(),
+          w_sb, w_se, gamma.data_ptr(), g_sb, g_sn, b, e, n)
+    dmp_step.launches += 1
+
+
+def _launch_marginals(out, prev, node, ps_0, gamma, pair) -> None:
+    state = (out, prev, node, ps_0, pair)
+    _launchable("dmp_marginals", (*state, gamma), state)
+    if not node.numel():
+        return
+    b, n = node.shape
+    g_sb, g_sn = _strides(gamma)
+    _call("dmp_marginals", node, out.data_ptr(), prev.data_ptr(), node.data_ptr(),
+          ps_0.data_ptr(), pair.data_ptr(), gamma.data_ptr(), g_sb, g_sn, b, n)
+    dmp_marginals.launches += 1
+
+
+def dmp_step(theta, theta_next, phi, ps_ij, pair, w, gamma, src, reverse) -> None:
+    """K4: the edge update of one DMP step. ``theta`` [B, E] (at t),
+    ``theta_next`` [B, E] or None (no theta at t + 1, the last step), ``phi``
+    and ``ps_ij`` [B, E] updated in place, ``pair`` [B, n, 2] (the node
+    product and Ps(0), as :func:`dmp_marginals` writes them), ``w`` [B or 1,
+    E or 1], ``gamma`` [B or 1, n or 1], ``src`` and ``reverse`` [E]
+    (``reverse`` -1 where an edge has none).
+
+    A CUDA tensor launches the kernel (float32, int32 indices, contiguous,
+    or it raises); a CPU tensor takes :func:`dmp_step_plain`."""
+    if theta.dim() != 2 or pair.dim() != 3:
+        raise ValueError(f"theta must be [B, E] and pair [B, n, 2], got "
+                         f"{list(theta.shape)} and {list(pair.shape)}")
+    b, e = theta.shape
+    n = pair.shape[1]
+    for name, t, shape in (("phi", phi, (b, e)), ("ps_ij", ps_ij, (b, e)),
+                           ("pair", pair, (b, n, 2)), ("src", src, (e,)),
+                           ("reverse", reverse, (e,))) + (
+            () if theta_next is None else (("theta_next", theta_next, (b, e)),)):
+        _shaped(name, t, shape, theta)
+    _rate("w", w, b, e, theta)
+    _rate("gamma", gamma, b, n, theta)
+    if theta.device.type == "cuda":
+        return _launch_step(theta, theta_next, phi, ps_ij, pair, w, gamma, src, reverse)
+    if theta.device.type != "cpu":
+        raise ValueError(f"dmp_step runs on cuda or cpu tensors, got {theta.device}")
+    return dmp_step_plain(theta, theta_next, phi, ps_ij, pair, w, gamma, src, reverse)
+
+
+def dmp_marginals(out, prev, node, ps_0, gamma, pair) -> None:
+    """K5: the marginals of one DMP step, written into ``out`` [B, n, 3]
+    (S, I, R at t) from ``prev`` [B, n, 3] (at t - 1), the node product
+    ``node`` and ``ps_0`` [B, n] and ``gamma`` [B or 1, n or 1]; and the node
+    product and Ps(0) side by side into ``pair`` [B, n, 2], for
+    :func:`dmp_step`.
+
+    A CUDA tensor launches the kernel (float32, contiguous, or it raises); a
+    CPU tensor takes :func:`dmp_marginals_plain`."""
+    if node.dim() != 2:
+        raise ValueError(f"node must be [B, n], got {list(node.shape)}")
+    b, n = node.shape
+    for name, t, shape in (("out", out, (b, n, 3)), ("prev", prev, (b, n, 3)),
+                           ("ps_0", ps_0, (b, n)), ("pair", pair, (b, n, 2))):
+        _shaped(name, t, shape, node)
+    _rate("gamma", gamma, b, n, node)
+    if node.device.type == "cuda":
+        return _launch_marginals(out, prev, node, ps_0, gamma, pair)
+    if node.device.type != "cpu":
+        raise ValueError(f"dmp_marginals runs on cuda or cpu tensors, got {node.device}")
+    return dmp_marginals_plain(out, prev, node, ps_0, gamma, pair)
+
+
+dmp_step.launches = 0  # K4 launches since the last reset (CPU calls do not count)
+dmp_marginals.launches = 0  # K5 launches, likewise

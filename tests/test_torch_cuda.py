@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each kernel (K1, K1's gradient, K2,
-K3) against its plain version, and the serving path and the simulator on the
+K3, K4, K5) against its plain version, and the serving path and the simulator on the
 card against the same paths on the CPU.
 
 Every test here is marked ``cuda`` and skips where no card is visible. The
@@ -734,3 +734,117 @@ def test_dmp_serving_on_card_matches_cpu(cuda_device):
         assert a["peak_time"] == b["peak_time"]
         for k in ("peak_infected_frac", "final_recovered_frac"):
             assert a[k] == pytest.approx(b[k], abs=ATOL)
+
+
+def _dmp_case(form, one_way, dev, batch=6):
+    """DMP's edge structure on a power-law graph of 3,000 nodes (``one_way``:
+    a third of the edges dropped, so some have no reverse edge) on the CPU
+    and ``dev``, and a step's inputs on the CPU: theta, phi, Ps_ij, the
+    marginals at t - 1, Ps(0), and rates per scenario ([B, 1]), per edge and
+    node ([B, E], [B, n]) or shared by every scenario ([1, E], [1, n])."""
+    from gn_ode_sir_tpu_torch.models import dmp
+
+    g = _powerlaw_graph(n=3_000, m=20_000)
+    g = graph_from_edges(g.n_nodes, np.stack([g.src, g.dst], 1), name="powerlaw")
+    src, dst = g.src, g.dst
+    if one_way:
+        keep = np.random.default_rng(1).random(len(src)) > 0.33
+        src, dst = src[keep], dst[keep]
+    cave = dmp.cave_index(src, dst)
+    edges = {d: dmp.DmpEdges.build(src, dst, cave, g.n_nodes, device=d) for d in ("cpu", dev)}
+    n, e = g.n_nodes, len(src)
+    gen = torch.Generator().manual_seed(5)
+    rand = lambda *shape, lo=0.0, hi=1.0: lo + (hi - lo) * torch.rand(*shape, generator=gen)
+    rows = {"scenario": (batch, 1, batch, 1), "edge": (batch, e, batch, n),
+            "shared": (1, e, 1, n)}[form]
+    state = {"theta": rand(batch, e, lo=0.4), "phi": rand(batch, e, hi=0.3),
+             "ps_ij": rand(batch, e), "ps_0": rand(batch, n),
+             "prev": rand(batch, n, 3), "w": rand(*rows[:2], lo=0.1, hi=0.5),
+             "gamma": rand(*rows[2:], lo=0.1, hi=0.5)}
+    return edges, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["scenario", "edge", "shared"])
+@pytest.mark.parametrize("one_way", [False, True], ids=["reverse", "one_way"])
+def test_dmp_step_kernels_match_plain(cuda_device, form, one_way):
+    """K4 and K5, fed the node product the CPU took, against their plain
+    versions, bit for bit: the marginals, phi, Ps_ij, theta at t + 1, and
+    the last step, which writes no theta."""
+    from gn_ode_sir_tpu_torch.ops.dmp_step import (dmp_marginals, dmp_marginals_plain,
+                                                   dmp_step, dmp_step_plain)
+    from gn_ode_sir_tpu_torch.ops.segment import segment_prod
+
+    edges, st = _dmp_case(form, one_way, cuda_device)
+    cpu, card = edges["cpu"], edges[cuda_device]
+    node = segment_prod(st["theta"], cpu.dst, cpu.n_nodes, dim=-1)
+    on = lambda t: t.to(cuda_device)
+    nan = lambda t: on(torch.full_like(t, float("nan")))
+    out, pair = torch.empty_like(st["prev"]), torch.empty((*node.shape, 2))
+    dmp_marginals_plain(out, st["prev"], node, st["ps_0"], st["gamma"], pair)
+    before = (dmp_step.launches, dmp_marginals.launches)
+    out_card, pair_card = nan(out), nan(pair)
+    dmp_marginals(out_card, on(st["prev"]), on(node), on(st["ps_0"]), on(st["gamma"]), pair_card)
+    assert torch.equal(out_card.cpu(), out) and torch.equal(pair_card.cpu(), pair)
+    for last in (False, True):
+        phi, ps_ij = st["phi"].clone(), st["ps_ij"].clone()
+        nxt = None if last else torch.empty_like(st["theta"])
+        dmp_step_plain(st["theta"], nxt, phi, ps_ij, pair, st["w"], st["gamma"], cpu.src,
+                       cpu.reverse)
+        phi_c, ps_ij_c = on(st["phi"]), on(st["ps_ij"])
+        nxt_c = None if last else nan(st["theta"])
+        dmp_step(on(st["theta"]), nxt_c, phi_c, ps_ij_c, pair_card, on(st["w"]), on(st["gamma"]),
+                 card.src, card.reverse)
+        assert torch.isfinite(phi).all() and torch.isfinite(ps_ij).all()
+        assert torch.equal(phi_c.cpu(), phi) and torch.equal(ps_ij_c.cpu(), ps_ij)
+        assert last or torch.equal(nxt_c.cpu(), nxt)
+    torch.cuda.synchronize()
+    assert (dmp_step.launches, dmp_marginals.launches) == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_dmp_dispatch_takes_k4_and_k5_every_step(cuda_device):
+    """One served dispatch of DMP: a node product, K5 and K4 a step, and
+    nothing of the step left to the plain version; the recursion on the card
+    within 1e-5 of the CPU's (the node product's atomics round otherwise)."""
+    from gn_ode_sir_tpu_torch.cli import infer
+    from gn_ode_sir_tpu_torch.models.dmp import DMPSIR
+    from gn_ode_sir_tpu_torch.ops.dmp_step import dmp_marginals, dmp_step
+    from gn_ode_sir_tpu_torch.ops.segment import segment_prod
+
+    g = _powerlaw_graph(n=2_000, m=12_000)
+    g = graph_from_edges(g.n_nodes, np.stack([g.src, g.dst], 1), name="powerlaw")
+    model = DMPSIR.from_graph(g, max_time=20)
+    rng = np.random.default_rng(4)
+    seeds = [sorted(rng.choice(g.n_nodes, 2, replace=False)) for _ in range(8)]
+    arrays = infer.scenario_batch(g.n_nodes, seeds, rng.uniform(0.1, 0.5, 8),
+                                  rng.uniform(0.1, 0.5, 8))
+    adj = model.edges(cuda_device)
+    before = (dmp_step.launches, dmp_marginals.launches, segment_prod.calls)
+    rows = infer.predict_summaries(model, {}, adj, *arrays, dispatch_batch=8)
+    after = (dmp_step.launches, dmp_marginals.launches, segment_prod.calls)
+    assert [a - b for a, b in zip(after, before)] == [model.max_time - 1] * 3
+    want = infer.predict_summaries(model, {}, model.edges("cpu"), *arrays, dispatch_batch=8)
+    for a, b in zip(rows, want):
+        assert a["peak_time"] == b["peak_time"]
+        for k in ("peak_infected_frac", "final_recovered_frac"):
+            assert a[k] == pytest.approx(b[k], abs=ATOL)
+
+
+@pytest.mark.cuda
+def test_dmp_recursion_on_card_refuses_float64(cuda_device):
+    """A CUDA input launches K4 and K5 or raises: float64 rates and seeds
+    on the card are refused, not sent to a plain loop on the device."""
+    from gn_ode_sir_tpu_torch.models.dmp import DMPSIR, dmp_recursion
+    from gn_ode_sir_tpu_torch.ops.dmp_step import dmp_marginals, dmp_step
+
+    g = _powerlaw_graph(n=300, m=1_500)
+    g = graph_from_edges(g.n_nodes, np.stack([g.src, g.dst], 1), name="powerlaw")
+    adj = DMPSIR.from_graph(g).edges(cuda_device)
+    seeds = torch.zeros((2, g.n_nodes), dtype=torch.float64, device=cuda_device)
+    seeds[:, 0] = 1.0
+    rate = torch.full((2, 1), 0.3, dtype=torch.float64, device=cuda_device)
+    before = (dmp_step.launches, dmp_marginals.launches)
+    with pytest.raises(TypeError, match="float32"):
+        dmp_recursion(adj, rate, rate, seeds, max_time=4)
+    assert (dmp_step.launches, dmp_marginals.launches) == before

@@ -1,0 +1,276 @@
+"""K4's and K5's plain versions and DMP's fused recursion on the CPU: one
+step of the plain versions gives the bits of ``models/dmp.py::_step``, and
+``dmp_recursion`` (the node product, K5 and K4 a step) gives the bits of the
+recursion that loops ``_step``, for every rate form; the wrappers refuse what
+the kernels cannot take. The kernels themselves are held against their plain
+versions on the card (``tests/test_torch_cuda.py``)."""
+
+import numpy as np
+import pytest
+import torch
+
+from gn_ode_sir_tpu_torch.graphs.graph import graph_from_edges
+from gn_ode_sir_tpu_torch.models import DMPSIR, dmp
+from gn_ode_sir_tpu_torch.ops import _kernels
+from gn_ode_sir_tpu_torch.ops import dmp_step as k4
+from gn_ode_sir_tpu_torch.ops.dmp_step import (dmp_marginals, dmp_marginals_plain, dmp_step,
+                                               dmp_step_plain)
+from gn_ode_sir_tpu_torch.ops.segment import segment_prod
+from perfbench import inputs
+
+torch.set_num_threads(1)
+
+
+def _edges(one_way: bool, n=150, directed=1200, seed=2):
+    """A power-law graph's edges on the CPU; ``one_way`` drops a third of
+    them, so that some keep no reverse edge."""
+    g = graph_from_edges(n, inputs.powerlaw_pairs(n, directed, seed), name="powerlaw")
+    src, dst = g.src, g.dst
+    if one_way:
+        keep = np.random.default_rng(seed).random(len(src)) > 0.33
+        src, dst = src[keep], dst[keep]
+    cave = dmp.cave_index(src, dst)
+    assert bool((cave == len(src)).any()) is one_way
+    return dmp.DmpEdges.build(src, dst, cave, n, device="cpu")
+
+
+def _rates(form, b, edges, seed=0):
+    """(w, gamma, seeds) with a lead axis of ``b``, or none where ``b`` is
+    None; ``form`` 'scenario' ([B, 1]) or 'edge' ([B, E] and [B, n])."""
+    rng = np.random.default_rng(seed)
+    lead = () if b is None else (b,)
+    e, n = edges.n_edges, edges.n_nodes
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    seeds = np.zeros((*lead, n), np.float32)
+    for row in seeds.reshape(-1, n):
+        row[rng.choice(n, 3, replace=False)] = 1.0
+    w = rng.uniform(0.1, 0.5, (*lead, e if form == "edge" else 1))
+    gamma = rng.uniform(0.1, 0.5, (*lead, n if form == "edge" else 1))
+    return t(w), t(gamma), t(seeds)
+
+
+def _unfused(monkeypatch):
+    """``dmp_recursion`` on the loop of ``_step`` (a wrapped ``_step`` is not
+    the module's own)."""
+    own = dmp._step
+    monkeypatch.setattr(dmp, "_step", lambda *a, **k: own(*a, **k))
+
+
+@pytest.mark.parametrize("one_way", [False, True], ids=["reverse", "one_way"])
+@pytest.mark.parametrize("form,b", [("scenario", 4), ("edge", 3), ("scenario", None),
+                                    ("edge", None)])
+def test_recursion_gives_the_bits_of_the_step_loop(form, b, one_way, monkeypatch):
+    edges = _edges(one_way)
+    w, gamma, seeds = _rates(form, b, edges, seed=len(form) + (b or 0))
+    calls = segment_prod.calls
+    got = dmp.dmp_recursion(edges, w, gamma, seeds, max_time=12)
+    assert segment_prod.calls - calls == 11  # the node product once a step
+    _unfused(monkeypatch)
+    want = dmp.dmp_recursion(edges, w, gamma, seeds, max_time=12)
+    assert got.shape == (12, *(() if b is None else (b,)), edges.n_nodes, 3)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def _eager_step(theta, phi, ps_ij, pr, pi, w, gamma, ps_0, edges, *, first):
+    """One step in the recursion's eager ops, as they stood before K4 and K5:
+    theta, phi, Ps_ij and the marginals [B, n, 3] at t from those at t - 1."""
+    theta = theta - w * phi
+    if first:
+        theta = theta + 1e-10
+    node = segment_prod(theta, edges.dst, edges.n_nodes, dim=-1)
+    rev = edges.reverse.long()
+    cav = torch.where(rev >= 0, theta.index_select(-1, rev.clamp(min=0)), 1.0)
+    gamma_src = gamma if gamma.shape[-1] == 1 else gamma.index_select(-1, edges.src)
+    new_ps_ij = ps_0.index_select(-1, edges.src) * (node.index_select(-1, edges.src) / cav)
+    phi = (1.0 - w) * (1.0 - gamma_src) * phi - (new_ps_ij - ps_ij)
+    ps_t = ps_0 * node
+    pr_t = pr + gamma * pi
+    return theta, phi, new_ps_ij, torch.stack([ps_t, 1.0 - ps_t - pr_t, pr_t], dim=-1)
+
+
+@pytest.mark.parametrize("one_way", [False, True], ids=["reverse", "one_way"])
+@pytest.mark.parametrize("form", ["scenario", "edge"])
+@pytest.mark.parametrize("first", [True, False], ids=["first_step", "later_step"])
+def test_plain_step_gives_the_bits_of_step(form, first, one_way):
+    """The step's eager ops from the state at t - 1 against ``_step`` and
+    against the same state moved on by the fused form: theta at t, the node
+    product, then K5's and K4's plain versions. The marginals, phi and Ps_ij
+    at t, and theta at t + 1 as the eager ops make it at the next step, bit
+    for bit."""
+    edges = _edges(one_way)
+    w, gamma, seeds = _rates(form, 5, edges, seed=7)
+    ps_0 = 1.0 - seeds
+    ps_i0 = ps_0.index_select(-1, edges.src)
+    eager = lambda *state, first: _eager_step(*state, w, gamma, ps_0, edges, first=first)
+    theta, phi, ps_ij, pr, pi = torch.ones(()), 1.0 - ps_i0, ps_i0, torch.zeros_like(seeds), seeds
+    for t in range(1, 1 if first else 4):  # a later step: three in, every term moving
+        theta, phi, ps_ij, marg = eager(theta, phi, ps_ij, pr, pi, first=t == 1)
+        pi, pr = marg[..., 1], marg[..., 2]
+    want_theta, want_phi, want_ps_ij, want_marg = eager(theta, phi, ps_ij, pr, pi, first=first)
+    prev = torch.stack([torch.full_like(pi, float("nan")), pi, pr], dim=-1)
+    c = dmp._Constants(edges=edges, w=w, gamma=gamma, ps_0=ps_0)
+    got = dmp._step(theta, phi, ps_ij, prev, c, first=first)
+    for x, y in zip(got, (want_theta, want_phi, want_ps_ij, want_marg)):
+        assert torch.equal(x, y)
+    theta = theta - w * phi
+    if first:
+        theta = theta + 1e-10
+    assert torch.equal(theta, want_theta)
+    node = segment_prod(theta, edges.dst, edges.n_nodes, dim=-1)
+    out, pair = torch.empty((5, edges.n_nodes, 3)), torch.empty((5, edges.n_nodes, 2))
+    dmp_marginals(out, prev, node, ps_0, gamma, pair)
+    assert torch.equal(out, want_marg)
+    assert torch.equal(pair, torch.stack([node, ps_0], dim=-1))
+    nxt, phi_t, ps_ij_t = torch.empty_like(theta), phi.clone(), ps_ij.clone()
+    dmp_step(theta, nxt, phi_t, ps_ij_t, pair, w, gamma, edges.src, edges.reverse)
+    assert torch.equal(phi_t, want_phi) and torch.equal(ps_ij_t, want_ps_ij)
+    assert torch.equal(nxt, want_theta - w * want_phi)
+    # the last step writes no theta and moves phi and Ps_ij alike
+    phi_t, ps_ij_t = phi.clone(), ps_ij.clone()
+    dmp_step_plain(theta, None, phi_t, ps_ij_t, pair, w, gamma, edges.src, edges.reverse)
+    assert torch.equal(phi_t, want_phi) and torch.equal(ps_ij_t, want_ps_ij)
+
+
+def test_run_and_predict_take_the_fused_step(monkeypatch):
+    """``run`` (B = 1, no lead axis, a scalar rate and per-edge / per-node
+    rates), ``run_many`` and ``predict`` all run the fused recursion."""
+    calls = []
+    own = dmp.dmp_step
+
+    def recording(*a, **k):
+        calls.append(a[1] is None)
+        return own(*a, **k)
+
+    monkeypatch.setattr(dmp, "dmp_step", recording)
+    g = graph_from_edges(60, inputs.powerlaw_pairs(60, 400, 3), name="powerlaw")
+    model = DMPSIR.from_graph(g, max_time=6)
+    model.run([1, 4], 0.3, 0.2, max_time=6, device="cpu")
+    rng = np.random.default_rng(0)
+    model.run([2], rng.uniform(0.1, 0.5, g.n_edges), rng.uniform(0.1, 0.5, g.n_nodes),
+              max_time=6, device="cpu")
+    model.run_many([[1], [5, 6]], [0.2, 0.4], [0.1, 0.3], max_time=6, device="cpu")
+    i0 = torch.zeros((2, 60))
+    i0[:, 3] = 1.0
+    model.predict({}, model.edges("cpu"), 1 - i0, i0, 0 * i0, torch.tensor([0.2, 0.3]),
+                  torch.tensor([0.1, 0.2]))
+    assert calls == [False, False, False, False, True] * 4  # the last step writes no theta
+
+
+def test_faults_on_step_or_cavity_take_the_step_loop(monkeypatch):
+    """A replaced ``_step`` or ``_cavity`` (the benchmark's DMP faults)
+    runs the loop of ``_step``, where the replacement acts."""
+    edges = _edges(False)
+    w, gamma, seeds = _rates("scenario", 2, edges)
+    whole = dmp.dmp_recursion(edges, w, gamma, seeds, max_time=5)
+    monkeypatch.setattr(dmp, "_cavity", lambda theta, edges: torch.ones_like(theta))
+    backtracking = dmp.dmp_recursion(edges, w, gamma, seeds, max_time=5)
+    assert not torch.equal(whole, backtracking)
+
+
+def _step_args(b=2, e=7, n=4):
+    z = lambda *s: torch.zeros(s)
+    return dict(theta=z(b, e), theta_next=z(b, e), phi=z(b, e), ps_ij=z(b, e), pair=z(b, n, 2),
+                w=z(b, 1), gamma=z(b, n), src=torch.zeros(e, dtype=torch.int32),
+                reverse=torch.zeros(e, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("name,bad,match", [
+    ("phi", torch.zeros(2, 6), "phi"), ("theta_next", torch.zeros(3, 7), "theta_next"),
+    ("pair", torch.zeros(2, 4, 3), "pair"), ("pair", torch.zeros(2, 5, 2), "gamma must"),
+    ("src", torch.zeros(6, dtype=torch.int32), "src"), ("w", torch.zeros(2, 3), "w must"),
+    ("gamma", torch.zeros(3, 4), "gamma must"), ("theta", torch.zeros(2, 7, 1), "theta must")])
+def test_step_refuses_shapes_that_do_not_fit(name, bad, match):
+    args = _step_args()
+    args[name] = bad
+    with pytest.raises(ValueError, match=match):
+        dmp_step(**args)
+
+
+def test_marginals_refuse_shapes_that_do_not_fit():
+    z = torch.zeros
+    with pytest.raises(ValueError, match="out"):
+        dmp_marginals(z(2, 4, 2), z(2, 4, 3), z(2, 4), z(2, 4), z(2, 1), z(2, 4, 2))
+    with pytest.raises(ValueError, match="prev"):
+        dmp_marginals(z(2, 4, 3), z(1, 4, 3), z(2, 4), z(2, 4), z(2, 1), z(2, 4, 2))
+    with pytest.raises(ValueError, match="gamma"):
+        dmp_marginals(z(2, 4, 3), z(2, 4, 3), z(2, 4), z(2, 4), z(2, 3), z(2, 4, 2))
+    with pytest.raises(ValueError, match="pair"):
+        dmp_marginals(z(2, 4, 3), z(2, 4, 3), z(2, 4), z(2, 4), z(2, 1), z(2, 4, 3))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        dmp_marginals(*(t.to("meta") for t in (z(2, 4, 3), z(2, 4, 3), z(2, 4), z(2, 4),
+                                               z(2, 1), z(2, 4, 2))))
+
+
+def test_kernel_path_refuses_dtype_contiguity_and_a_kernel_that_cannot_launch(monkeypatch):
+    """What a CUDA tensor meets before and at the launch, on CPU tensors:
+    float32, int32 indices, contiguous state, and a kernel that cannot be
+    had raises (no fallback to the plain version)."""
+    args = _step_args()
+    with pytest.raises(TypeError, match="float32"):
+        k4._launch_step(**{**args, "phi": args["phi"].double()})
+    with pytest.raises(TypeError, match="int32"):
+        k4._launch_step(**{**args, "src": args["src"].long()})
+    with pytest.raises(ValueError, match="contiguous"):
+        k4._launch_step(**{**args, "theta": torch.zeros(7, 2).t()})
+    with pytest.raises(ValueError, match="beside"):
+        k4._launch_step(**{**args, "theta_next": args["theta"]})
+    with pytest.raises(ValueError, match="rates contiguous"):
+        k4._launch_step(**{**args, "gamma": torch.zeros(4, 2).t()})
+    marginals = (torch.zeros(2, 4, 3), torch.zeros(2, 4, 3), torch.zeros(2, 4),
+                 torch.zeros(2, 4), torch.zeros(2, 1), torch.zeros(2, 4, 2))
+    with pytest.raises(TypeError, match="float32"):
+        k4._launch_marginals(*marginals[:-1], marginals[-1].double())
+    with pytest.raises(ValueError, match="contiguous"):
+        k4._launch_marginals(*marginals[:-1], torch.zeros(2, 2, 4).transpose(1, 2))
+
+    def unbuildable(name):
+        raise RuntimeError(f"nvcc not found: {name} cannot be built")
+
+    monkeypatch.setattr(_kernels, "kernel_function", unbuildable)
+    launches = dmp_step.launches
+    with pytest.raises(RuntimeError, match="dmp_edge_step"):
+        k4._launch_step(**args)
+    with pytest.raises(RuntimeError, match="dmp_marginals"):
+        k4._launch_marginals(*marginals)
+    assert dmp_step.launches == launches
+
+
+def test_cpu_calls_are_not_counted():
+    launches = (dmp_step.launches, dmp_marginals.launches)
+    edges = _edges(True)
+    dmp.dmp_recursion(edges, *_rates("edge", 2, edges), max_time=4)
+    assert (dmp_step.launches, dmp_marginals.launches) == launches
+    out, pair = torch.empty(2, 3, 3), torch.empty(2, 3, 2)
+    dmp_marginals_plain(out, torch.zeros(2, 3, 3), torch.ones(2, 3), torch.ones(2, 3),
+                        torch.zeros(2, 1), pair)
+    assert torch.equal(out[..., 0], torch.ones(2, 3)) and torch.equal(pair, torch.ones(2, 3, 2))
+
+
+def test_k4_and_k5_share_one_library(monkeypatch, tmp_path):
+    """Entry points of one source share its library, named after the source,
+    and a build starts one nvcc for it; the other kernels keep their names."""
+    assert _kernels.library_path("dmp_edge_step") == _kernels.library_path("dmp_marginals")
+    assert _kernels.library_path("dmp_marginals").name.startswith("libdmp_step-")
+    for name in ("spmm2", "sir_step", "gnode_step"):
+        assert _kernels.library_path(name).name.startswith(f"lib{name}-")
+    started = []
+
+    class Nvcc:
+        returncode = 0
+
+        def __init__(self, cmd, **kwargs):
+            started.append(cmd)
+            open(cmd[cmd.index("-o") + 1], "wb").close()
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_kernels, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_kernels.subprocess, "Popen", Nvcc)
+    report = _kernels.build_all(["dmp_edge_step", "dmp_marginals"])
+    assert len(started) == 1 and started[0][-1].endswith("dmp_step.cu")
+    assert list(report) == ["dmp_marginals"]
+    assert _kernels.library_path("dmp_edge_step").exists()
+    assert _kernels.build_all(["dmp_edge_step"]) == {}
