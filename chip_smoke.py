@@ -111,6 +111,8 @@ from gn_ode_sir_tpu_torch.train.loop import (_batch_loss, _data_to_device, make_
                                              make_train_epoch_fn)
 from gn_ode_sir_tpu_torch.utils import load_or_extract_labels_many
 from gn_ode_sir_tpu_torch.utils.csvsink import TRIAL_COLUMNS
+from perfbench.counts.spmm import k1_apply
+from perfbench.inputs import powerlaw_pairs
 
 SEED = 0
 ENRON_NODES = 33_696  # enron's largest connected component
@@ -120,9 +122,8 @@ STAR_EDGES = 50_000  # one dst row that owns every edge
 SERVE_SCENARIOS = 16
 DISPATCH_BATCH = 8
 EULER_STEPS = 39  # maxTime 20 / deltaT 0.5 = 40 grid points
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and f32 (non-tensor-core) rate
+# H100 SXM peak (NVIDIA data sheet): the HBM3 rate
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
 KERNEL_REL_TOL = 1e-5  # |kernel - plain| <= tol * (1 + sum_e |w_e x_src|)
 SERVE_ATOL = 1e-4  # card vs CPU probabilities after 39 steps
 K2_NEAR_SHARE = 1e-5  # K2 states may differ from plain only within 1 of a threshold
@@ -166,20 +167,9 @@ def emit(obj) -> None:
 
 def powerlaw_graph(n: int, n_directed: int, seed: int):
     """A seeded Chung-Lu power-law graph with exactly ``n_directed`` directed
-    edges (no self-loops, no duplicates), node ids shuffled."""
-    rng = np.random.default_rng(seed)
-    weight = np.arange(1, n + 1, dtype=np.float64) ** -0.55
-    weight /= weight.sum()
-    want = n_directed // 2
-    codes = np.zeros(0, np.int64)
-    while codes.size < want:
-        pairs = rng.choice(n, size=(int(1.2 * (want - codes.size)) + 64, 2), p=weight)
-        a, b = pairs.min(axis=1), pairs.max(axis=1)
-        codes = np.unique(np.concatenate([codes, (a * n + b)[a != b]]))
-    codes = np.sort(rng.choice(codes, size=want, replace=False))
-    perm = rng.permutation(n)
-    pairs = np.stack([perm[codes // n], perm[codes % n]], axis=1)
-    return graph_from_edges(n, pairs, name=f"powerlaw{n}")
+    edges (no self-loops, no duplicates), node ids shuffled: the benchmark's
+    stand-in graph (``perfbench/inputs.py::powerlaw_pairs``)."""
+    return graph_from_edges(n, powerlaw_pairs(n, n_directed, seed), name=f"powerlaw{n}")
 
 
 def transposed(graph: Graph) -> Graph:
@@ -265,15 +255,13 @@ def phase_build() -> None:
 
 def spmm2_bound(plan, x) -> dict:
     """The least time the card could take for one K1 apply of ``plan`` to
-    ``x`` [B, n, h]: x read once, the plan read once, the f32 result written
-    once, over the memory rate; 2 operations per edge and column over the
-    f32 rate."""
-    n, e = plan.n_nodes, plan.src.numel()
-    batch, h = x.shape[0], x.shape[-1]
-    bytes_moved = x.numel() * x.element_size() + 2 * e * 4 + (n + 1) * 4 + batch * n * h * 4
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, 2 * e * batch * h / F32_FLOP_PER_S
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    ``x`` [B, n, h], as the benchmark counts it
+    (``perfbench/counts/spmm.py::k1_apply``) with the plan's n: x read once,
+    the plan read once, the f32 result written once, over the memory rate;
+    2 operations per edge and column over the f32 rate."""
+    bound = k1_apply(plan.n_nodes, plan.src.numel(), x.shape[0], x.shape[-1],
+                     x.element_size())
+    return {"bound_ms": bound["bound_s"] * 1e3, "bound_by": bound["bound_by"]}
 
 
 def spmm2_library_times(plan, x) -> dict:

@@ -620,34 +620,29 @@ cudaError_t launch_typed(const Args& a) {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes): one apply on `device` and
-// `stream`, the segment kernel and, where the plan has long rows, the kernel
-// that adds their partial sums. x_bf16: x holds bf16 (else f32); bf16_msg:
-// round messages to bf16 before the f32 sum. work is int32 [n_work, 4], src
-// int32 [E], w f32 [E], fix_row int32 [n_fix], fix_ptr int32 [n_fix + 1],
-// partial f32 [batch, n_slots, h] (scratch; unused when n_fix == 0), out f32
-// [batch, n, h]; all contiguous on `device`. Returns the cudaError_t of the
-// launches (0 = ok).
-extern "C" int gnode_spmm2(int device, void* stream, const void* x, int x_bf16,
-                           int bf16_msg, const void* work, int n_work, const void* src,
-                           const void* w, const void* fix_row, const void* fix_ptr,
-                           int n_fix, void* partial, int n_slots, void* out, int n,
-                           int h, int batch) {
+// Plain C entry point (bound with ctypes): one apply on the current device
+// and `stream`, the segment kernel and, where the plan has long rows, the
+// kernel that adds their partial sums. x_bf16: x holds bf16 (else f32);
+// bf16_msg: round messages to bf16 before the f32 sum. work is int32
+// [n_work, 4], src int32 [E], w f32 [E], fix_row int32 [n_fix], fix_ptr int32
+// [n_fix + 1], partial f32 [batch, n_slots, h] (scratch; unused when
+// n_fix == 0), out f32 [batch, n, h]; all contiguous on the current device.
+// Returns the cudaError_t of the launches (0 = ok).
+extern "C" int gnode_spmm2(const void* x, int x_bf16, int bf16_msg, const void* work,
+                           int n_work, const void* src, const void* w, const void* fix_row,
+                           const void* fix_ptr, int n_fix, void* partial, int n_slots,
+                           void* out, int n, int h, int batch, void* stream) {
   if (n <= 0 || h <= 0 || batch <= 0 || n_work <= 0 || n_work > INT_MAX - kWarpsPerBlock * 32 ||
       n_fix < 0 || n_slots < 0 || (n_fix > 0 && partial == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{x, work, src, w, fix_row, fix_ptr, partial, out,
                n, h, batch, n_work, n_fix, n_slots, static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
   if (x_bf16) {
     err = bf16_msg ? launch_typed<__nv_bfloat16, true>(a) : launch_typed<__nv_bfloat16, false>(a);
   } else {
     err = bf16_msg ? launch_typed<float, true>(a) : launch_typed<float, false>(a);
   }
-  if (current != device) cudaSetDevice(current);
   return static_cast<int>(err);
 }

@@ -8,6 +8,13 @@ library is named after its source and carries a hash of the source and the
 flags, so an edited source is rebuilt and a fresh checkout builds everything
 on its first call. Kernels whose entry points share a source share its
 library. :func:`build_all` starts one ``nvcc`` per source at once.
+
+Every kernel's wrapper goes the same way to its kernel: :func:`on_cuda`
+sends a CUDA tensor to the kernel and a CPU tensor to the plain version,
+:func:`check` refuses what the kernel cannot take, and :func:`launch` calls
+the entry point under a guard of the tensors' device, on its current stream,
+and raises if the launch failed. Every C entry point takes that stream as its
+last argument and returns its ``cudaError_t``.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -35,10 +44,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _U = ctypes.c_uint
 _F = ctypes.c_float
-# kernel name -> (source file, C symbol, argtypes); restype is int (cudaError_t)
+# kernel name -> (source file, C symbol, argtypes, the stream last); restype is
+# int (cudaError_t)
 KERNELS = {
     "spmm2": ("spmm2.cu", "gnode_spmm2",
-              [_I, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I]),
+              [_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _P]),
     "sir_step": ("sir_step.cu", "gnode_sir_step",
                  [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _U, _P]),
     "gnode_step": ("gnode_step.cu", "gnode_step",
@@ -145,3 +155,41 @@ def kernel_function(name: str):
         fn.restype = ctypes.c_int
         _FUNCS[name] = fn
     return fn
+
+
+def on_cuda(name: str, device: torch.device) -> bool:
+    """The route of kernel ``name``'s wrapper for tensors on ``device``: True
+    on a CUDA device (launch the kernel), False on the CPU (the plain
+    version); any other device raises ValueError."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"{name} runs on cuda or cpu tensors, got {device}")
+
+
+def check(name: str, device: torch.device, typed, contiguous) -> None:
+    """Refuse tensors that kernel ``name`` cannot take: ``typed`` pairs a
+    tuple of dtypes with the tensors that must have one of them, and every
+    one of those tensors must lie on ``device``; the tensors of
+    ``contiguous`` must be contiguous. Raises TypeError or ValueError."""
+    for dtypes, tensors in typed:
+        for t in tensors:
+            if t.dtype not in dtypes:
+                allowed = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+                raise TypeError(f"{name} kernel takes {allowed} tensors, got {t.dtype}")
+            if t.device != device:
+                raise ValueError(f"{name}: tensors on {t.device} and {device}")
+    if not all(t.is_contiguous() for t in contiguous):
+        raise ValueError(f"{name} kernel takes contiguous tensors")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Kernel ``name`` on ``args`` and the current stream of ``device``,
+    under a guard of that device; raises RuntimeError if the launch failed
+    or the kernel cannot be built."""
+    fn = kernel_function(name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

@@ -76,19 +76,15 @@ def dmp_marginals_plain(out, prev, node, ps_0, gamma, pair) -> None:
     torch.stack([node, ps_0], dim=-1, out=pair)
 
 
-def _shaped(name, t, shape, like):
+def _shaped(name, t, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must be {list(shape)}, got {list(t.shape)}")
-    if t.device != like.device:
-        raise ValueError(f"dmp_step: tensors on {t.device} and {like.device}")
 
 
-def _rate(name, t, b, last, like):
-    """A rate [B or 1, last or 1] on ``like``'s device."""
+def _rate(name, t, b, last):
+    """A rate [B or 1, last or 1]."""
     if t.dim() != 2 or t.shape[0] not in (1, b) or t.shape[1] not in (1, last):
         raise ValueError(f"{name} must be [{b} or 1, {last} or 1], got {list(t.shape)}")
-    if t.device != like.device:
-        raise ValueError(f"dmp_step: tensors on {t.device} and {like.device}")
 
 
 def _strides(t) -> tuple[int, int]:
@@ -98,27 +94,11 @@ def _strides(t) -> tuple[int, int]:
     return (0 if t.shape[0] == 1 else t.stride(0)), (0 if t.shape[1] == 1 else 1)
 
 
-def _launchable(name, tensors, contiguous, index=()) -> None:
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{name} kernel takes float32 tensors, got "
-                        f"{sorted({str(t.dtype) for t in tensors})}")
-    if any(t.dtype != torch.int32 for t in index):
-        raise TypeError(f"{name} kernel takes int32 edge indices")
-    if not all(t.is_contiguous() for t in (*contiguous, *index)):
-        raise ValueError(f"{name} kernel takes contiguous tensors")
-
-
-def _call(name, like, *args) -> None:
-    fn = _kernels.kernel_function(name)
-    with torch.cuda.device(like.device):
-        err = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-
-
 def _launch_step(theta, theta_next, phi, ps_ij, pair, w, gamma, src, reverse) -> None:
     state = (theta, phi, ps_ij, pair) + (() if theta_next is None else (theta_next,))
-    _launchable("dmp_step", (*state, w, gamma), state, (src, reverse))
+    _kernels.check("dmp_step", theta.device, [((torch.float32,), (*state, w, gamma)),
+                                              ((torch.int32,), (src, reverse))],
+                   (*state, src, reverse))
     if theta_next is not None and theta_next.data_ptr() == theta.data_ptr():
         raise ValueError("dmp_step writes theta at t + 1 beside theta at t, not over it")
     if not theta.numel():
@@ -126,22 +106,23 @@ def _launch_step(theta, theta_next, phi, ps_ij, pair, w, gamma, src, reverse) ->
     (b, e), n = theta.shape, pair.shape[1]
     w_sb, w_se = _strides(w)
     g_sb, g_sn = _strides(gamma)
-    _call("dmp_edge_step", theta, theta.data_ptr(),
-          None if theta_next is None else theta_next.data_ptr(), phi.data_ptr(),
-          ps_ij.data_ptr(), pair.data_ptr(), src.data_ptr(), reverse.data_ptr(), w.data_ptr(),
-          w_sb, w_se, gamma.data_ptr(), g_sb, g_sn, b, e, n)
+    _kernels.launch("dmp_edge_step", theta.device, theta.data_ptr(),
+                    None if theta_next is None else theta_next.data_ptr(), phi.data_ptr(),
+                    ps_ij.data_ptr(), pair.data_ptr(), src.data_ptr(), reverse.data_ptr(),
+                    w.data_ptr(), w_sb, w_se, gamma.data_ptr(), g_sb, g_sn, b, e, n)
     dmp_step.launches += 1
 
 
 def _launch_marginals(out, prev, node, ps_0, gamma, pair) -> None:
     state = (out, prev, node, ps_0, pair)
-    _launchable("dmp_marginals", (*state, gamma), state)
+    _kernels.check("dmp_marginals", node.device, [((torch.float32,), (*state, gamma))], state)
     if not node.numel():
         return
     b, n = node.shape
     g_sb, g_sn = _strides(gamma)
-    _call("dmp_marginals", node, out.data_ptr(), prev.data_ptr(), node.data_ptr(),
-          ps_0.data_ptr(), pair.data_ptr(), gamma.data_ptr(), g_sb, g_sn, b, n)
+    _kernels.launch("dmp_marginals", node.device, out.data_ptr(), prev.data_ptr(),
+                    node.data_ptr(), ps_0.data_ptr(), pair.data_ptr(), gamma.data_ptr(), g_sb,
+                    g_sn, b, n)
     dmp_marginals.launches += 1
 
 
@@ -164,13 +145,11 @@ def dmp_step(theta, theta_next, phi, ps_ij, pair, w, gamma, src, reverse) -> Non
                            ("pair", pair, (b, n, 2)), ("src", src, (e,)),
                            ("reverse", reverse, (e,))) + (
             () if theta_next is None else (("theta_next", theta_next, (b, e)),)):
-        _shaped(name, t, shape, theta)
-    _rate("w", w, b, e, theta)
-    _rate("gamma", gamma, b, n, theta)
-    if theta.device.type == "cuda":
+        _shaped(name, t, shape)
+    _rate("w", w, b, e)
+    _rate("gamma", gamma, b, n)
+    if _kernels.on_cuda("dmp_step", theta.device):
         return _launch_step(theta, theta_next, phi, ps_ij, pair, w, gamma, src, reverse)
-    if theta.device.type != "cpu":
-        raise ValueError(f"dmp_step runs on cuda or cpu tensors, got {theta.device}")
     return dmp_step_plain(theta, theta_next, phi, ps_ij, pair, w, gamma, src, reverse)
 
 
@@ -188,12 +167,10 @@ def dmp_marginals(out, prev, node, ps_0, gamma, pair) -> None:
     b, n = node.shape
     for name, t, shape in (("out", out, (b, n, 3)), ("prev", prev, (b, n, 3)),
                            ("ps_0", ps_0, (b, n)), ("pair", pair, (b, n, 2))):
-        _shaped(name, t, shape, node)
-    _rate("gamma", gamma, b, n, node)
-    if node.device.type == "cuda":
+        _shaped(name, t, shape)
+    _rate("gamma", gamma, b, n)
+    if _kernels.on_cuda("dmp_marginals", node.device):
         return _launch_marginals(out, prev, node, ps_0, gamma, pair)
-    if node.device.type != "cpu":
-        raise ValueError(f"dmp_marginals runs on cuda or cpu tensors, got {node.device}")
     return dmp_marginals_plain(out, prev, node, ps_0, gamma, pair)
 
 

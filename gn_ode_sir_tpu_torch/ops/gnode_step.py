@@ -67,28 +67,18 @@ def _check(ai, zs, zi, state, beta, gamma, out) -> None:
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {list(shape)}, got {list(t.shape)}")
-        if t.device != zs.device:
-            raise ValueError(f"gnode_step: tensors on {t.device} and {zs.device}")
 
 
 def _launch(ai, zs, zi, state, beta, gamma, dt, out) -> None:
     tensors = (ai, zs, zi, state, beta, gamma) + (() if out is None else (out,))
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("gnode_step kernel takes float32 tensors, got "
-                        f"{sorted({str(t.dtype) for t in tensors})}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("gnode_step kernel takes contiguous tensors")
+    _kernels.check("gnode_step", zs.device, [((torch.float32,), tensors)], tensors)
     b, n, h = zs.shape
     if not zs.numel():
         return
-    fn = _kernels.kernel_function("gnode_step")
-    with torch.cuda.device(zs.device):
-        err = fn(ai.data_ptr(), zs.data_ptr(), zi.data_ptr(), state[0].data_ptr(),
-                 state[1].data_ptr(), state[2].data_ptr(), beta.data_ptr(), gamma.data_ptr(),
-                 float(np.float32(dt)), None if out is None else out.data_ptr(), b, n * h, h,
-                 torch.cuda.current_stream(zs.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gnode_step kernel launch failed: cudaError_t {err}")
+    _kernels.launch("gnode_step", zs.device, ai.data_ptr(), zs.data_ptr(), zi.data_ptr(),
+                    state[0].data_ptr(), state[1].data_ptr(), state[2].data_ptr(),
+                    beta.data_ptr(), gamma.data_ptr(), float(np.float32(dt)),
+                    None if out is None else out.data_ptr(), b, n * h, h)
     gnode_step.launches += 1
 
 
@@ -101,10 +91,8 @@ def gnode_step(ai, zs, zi, state, beta, gamma, dt: float, out=None) -> None:
     A CUDA tensor launches the kernel (float32, contiguous, or it raises); a
     CPU tensor takes :func:`gnode_step_plain`."""
     _check(ai, zs, zi, state, beta, gamma, out)
-    if zs.device.type == "cuda":
+    if _kernels.on_cuda("gnode_step", zs.device):
         return _launch(ai, zs, zi, state, beta, gamma, dt, out)
-    if zs.device.type != "cpu":
-        raise ValueError(f"gnode_step runs on cuda or cpu tensors, got {zs.device}")
     return gnode_step_plain(ai, zs, zi, state, beta, gamma, dt, out)
 
 

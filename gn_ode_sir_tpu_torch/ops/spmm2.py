@@ -192,31 +192,25 @@ def spmm2_plain(plan: CsrPlan, x: torch.Tensor, precision: str = "f32") -> torch
 
 
 def _launch(plan: CsrPlan, x: torch.Tensor, precision: str, backward: bool) -> torch.Tensor:
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"spmm2 kernel takes float32 or bfloat16 x, got {x.dtype}")
+    _kernels.check("spmm2", x.device, [((torch.float32, torch.bfloat16), (x,))], (x,))
     if x.dim() not in (2, 3) or x.shape[-2] != plan.n_nodes:
         raise ValueError(
             f"x must be [n, h] or [B, n, h] with n = {plan.n_nodes}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("spmm2 kernel takes a contiguous x")
     if plan.work.device != x.device:
         raise ValueError(f"plan lies on {plan.work.device}, x on {x.device}")
     b = x.shape[0] if x.dim() == 3 else 1
     n, h = x.shape[-2:]
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if out.numel():
-        fn = _kernels.kernel_function("spmm2")
         n_slots = plan.n_slots
         # scratch for the partial sums of the rows cut into several items;
         # it may go back to the allocator at once: this stream is its only user
         partial = (torch.empty((b, n_slots, h), dtype=torch.float32, device=x.device)
                    if n_slots else None)
-        err = fn(x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
-                 x.data_ptr(), x.dtype == torch.bfloat16, precision == "bf16",
-                 *plan._kernel_args, partial.data_ptr() if n_slots else None, n_slots,
-                 out.data_ptr(), n, h, b)
-        if err != 0:
-            raise RuntimeError(f"spmm2 kernel launch failed: cudaError_t {err}")
+        _kernels.launch("spmm2", x.device, x.data_ptr(), x.dtype == torch.bfloat16,
+                        precision == "bf16", *plan._kernel_args,
+                        partial.data_ptr() if n_slots else None, n_slots, out.data_ptr(),
+                        n, h, b)
         spmm2.launches += 1
         spmm2.backward_launches += int(backward)
     return out
@@ -224,11 +218,9 @@ def _launch(plan: CsrPlan, x: torch.Tensor, precision: str, backward: bool) -> t
 
 def _apply(plan: CsrPlan, x: torch.Tensor, precision: str, backward: bool) -> torch.Tensor:
     _check_precision(precision)
-    if x.device.type == "cuda":
+    if _kernels.on_cuda("spmm2", x.device):
         return _launch(plan, x, precision, backward)
-    if x.device.type == "cpu":
-        return spmm2_plain(plan, x, precision)
-    raise ValueError(f"spmm2 runs on cuda or cpu tensors, got {x.device}")
+    return spmm2_plain(plan, x, precision)
 
 
 def spmm2(plan: CsrPlan, x: torch.Tensor, precision: str = "f32") -> torch.Tensor:

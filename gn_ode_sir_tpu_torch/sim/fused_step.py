@@ -103,19 +103,10 @@ def _check_shapes(i, r, counts, log1m_beta, gamma16, seeds, sims):
 
 
 def _launch(i, r, counts, log1m_beta, gamma16, seeds, step, sims, return_words):
-    if i.dtype != torch.int8 or r.dtype != torch.int8:
-        raise TypeError(f"sir_step kernel takes int8 states, got {i.dtype}, {r.dtype}")
-    if counts.dtype not in (torch.float32, torch.int32):
-        raise TypeError(f"sir_step kernel takes float32 or int32 counts, got {counts.dtype}")
-    if log1m_beta.dtype != torch.float32 or gamma16.dtype != torch.float32:
-        raise TypeError("sir_step kernel takes float32 log1m_beta and gamma16")
-    if seeds.dtype != torch.int64:
-        raise TypeError(f"sir_step kernel takes int64 seeds, got {seeds.dtype}")
-    for t in (i, r, counts, log1m_beta, gamma16, seeds):
-        if t.device != i.device:
-            raise ValueError(f"sir_step: tensors on {t.device} and {i.device}")
-        if not t.is_contiguous():
-            raise ValueError("sir_step kernel takes contiguous tensors")
+    _kernels.check("sir_step", i.device, [
+        ((torch.int8,), (i, r)), ((torch.float32, torch.int32), (counts,)),
+        ((torch.float32,), (log1m_beta, gamma16)), ((torch.int64,), (seeds,))],
+        (i, r, counts, log1m_beta, gamma16, seeds))
     rows, n = i.shape
     if rows // sims > 65535:
         raise ValueError(f"sir_step kernel takes at most 65,535 trials a launch, got {rows // sims}")
@@ -123,16 +114,11 @@ def _launch(i, r, counts, log1m_beta, gamma16, seeds, step, sims, return_words):
     words = (torch.empty((rows, n), dtype=torch.int32, device=i.device)
              if return_words else None)
     if i.numel():
-        fn = _kernels.kernel_function("sir_step")
-        with torch.cuda.device(i.device):
-            err = fn(i.data_ptr(), r.data_ptr(), counts.data_ptr(),
-                     int(counts.dtype == torch.int32), log1m_beta.data_ptr(),
-                     gamma16.data_ptr(), seeds.data_ptr(), i_out.data_ptr(),
-                     r_out.data_ptr(), words.data_ptr() if return_words else None,
-                     rows, n, sims, step,
-                     torch.cuda.current_stream(i.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"sir_step kernel launch failed: cudaError_t {err}")
+        _kernels.launch("sir_step", i.device, i.data_ptr(), r.data_ptr(), counts.data_ptr(),
+                        int(counts.dtype == torch.int32), log1m_beta.data_ptr(),
+                        gamma16.data_ptr(), seeds.data_ptr(), i_out.data_ptr(),
+                        r_out.data_ptr(), words.data_ptr() if return_words else None,
+                        rows, n, sims, step)
         sir_step.launches += 1
     if return_words:
         return i_out, r_out, words.to(torch.int64).bitwise_and_(_MASK32)
@@ -151,10 +137,8 @@ def sir_step(i, r, counts, log1m_beta, gamma16, seeds, step: int, *, sims: int,
     trials = _check_shapes(i, r, counts, log1m_beta, gamma16, seeds, sims)
     if not 0 <= step <= _MASK32:
         raise ValueError(f"step must fit 32 bits, got {step}")
-    if i.device.type == "cuda":
+    if _kernels.on_cuda("sir_step", i.device):
         return _launch(i, r, counts, log1m_beta, gamma16, seeds, step, sims, return_words)
-    if i.device.type != "cpu":
-        raise ValueError(f"sir_step runs on cuda or cpu tensors, got {i.device}")
     n = i.shape[1]
     words = torch.cat([philox4x32_words(s, step, sims * n, device=i.device)
                        for s in seeds.tolist()]).reshape(trials * sims, n)

@@ -55,6 +55,7 @@ from gn_ode_sir_tpu_torch.graphs.graph import Graph  # noqa: E402
 from gn_ode_sir_tpu_torch.ops import _kernels  # noqa: E402
 from gn_ode_sir_tpu_torch.ops import spmm2 as spmm2_mod  # noqa: E402
 from gn_ode_sir_tpu_torch.ops.spmm2 import CsrPlan, spmm2, spmm2_plain  # noqa: E402
+from perfbench import profiling  # noqa: E402
 
 CONSTANTS = ("kStepsInFlight", "kScenariosPerWarp", "kWarpsPerBlock", "kMinBlocksPerSM",
              "kNarrowRowBytes", "kNarrowSteps", "kNarrowTeamLanes", "kNarrowMinBlocks",
@@ -202,20 +203,19 @@ PROFILED_APPLIES = 20
 
 
 def kernel_profile(call) -> dict:
-    """``torch.profiler``'s device time by kernel over PROFILED_APPLIES
-    applies (each kernel's own time, without the host's gaps)."""
-    from torch.profiler import ProfilerActivity, profile
-    from torch_serve_profile import summarize_profile
-
+    """``torch.profiler``'s device time over PROFILED_APPLIES applies: the
+    device's busy time (the union of its operation spans), its time by
+    kernel group, and the longest operations by name, all in ms."""
     call()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED_APPLIES):
-            call()
-        torch.cuda.synchronize()
-    summary = summarize_profile(prof, (time.perf_counter() - t0) * 1e6)
-    return {"top_kernels": summary["top_kernels"]}
+    _, trace = profiling.profiled(lambda: [call() for _ in range(PROFILED_APPLIES)])
+    groups = {}
+    for name, start, end in trace.device_ops:
+        group = profiling.kernel_group(name)
+        groups[group] = groups.get(group, 0.0) + (end - start) / 1e3
+    return {"device_busy_ms": profiling.union(trace.spans()) / 1e3,
+            "device_ms_by_group": dict(sorted(groups.items())),
+            "top_kernels": [[name, s * 1e3]
+                            for name, s in profiling.breakdown(trace)["device_ops"]]}
 
 
 def enqueue_ms(fn, iters: int = 50) -> float:

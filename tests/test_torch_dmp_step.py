@@ -202,38 +202,18 @@ def test_marginals_refuse_shapes_that_do_not_fit():
                                                z(2, 1), z(2, 4, 2))))
 
 
-def test_kernel_path_refuses_dtype_contiguity_and_a_kernel_that_cannot_launch(monkeypatch):
-    """What a CUDA tensor meets before and at the launch, on CPU tensors:
-    float32, int32 indices, contiguous state, and a kernel that cannot be
-    had raises (no fallback to the plain version)."""
+def test_k4_kernel_path_refuses_int64_indices_theta_over_itself_and_strided_rates():
+    """What K4's kernel path refuses beyond the checks every kernel shares
+    (``tests/test_torch_kernels.py``), on CPU tensors: int64 edge indices,
+    theta at t + 1 written over theta at t, and rates strided along their
+    last axis."""
     args = _step_args()
-    with pytest.raises(TypeError, match="float32"):
-        k4._launch_step(**{**args, "phi": args["phi"].double()})
     with pytest.raises(TypeError, match="int32"):
         k4._launch_step(**{**args, "src": args["src"].long()})
-    with pytest.raises(ValueError, match="contiguous"):
-        k4._launch_step(**{**args, "theta": torch.zeros(7, 2).t()})
     with pytest.raises(ValueError, match="beside"):
         k4._launch_step(**{**args, "theta_next": args["theta"]})
     with pytest.raises(ValueError, match="rates contiguous"):
         k4._launch_step(**{**args, "gamma": torch.zeros(4, 2).t()})
-    marginals = (torch.zeros(2, 4, 3), torch.zeros(2, 4, 3), torch.zeros(2, 4),
-                 torch.zeros(2, 4), torch.zeros(2, 1), torch.zeros(2, 4, 2))
-    with pytest.raises(TypeError, match="float32"):
-        k4._launch_marginals(*marginals[:-1], marginals[-1].double())
-    with pytest.raises(ValueError, match="contiguous"):
-        k4._launch_marginals(*marginals[:-1], torch.zeros(2, 2, 4).transpose(1, 2))
-
-    def unbuildable(name):
-        raise RuntimeError(f"nvcc not found: {name} cannot be built")
-
-    monkeypatch.setattr(_kernels, "kernel_function", unbuildable)
-    launches = dmp_step.launches
-    with pytest.raises(RuntimeError, match="dmp_edge_step"):
-        k4._launch_step(**args)
-    with pytest.raises(RuntimeError, match="dmp_marginals"):
-        k4._launch_marginals(*marginals)
-    assert dmp_step.launches == launches
 
 
 def test_cpu_calls_are_not_counted():

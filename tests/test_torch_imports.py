@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of gn_ode_sir_tpu_torch,
-chip_smoke.py and the port's profiling scripts pulls in no JAX, nothing of
-gn_ode_sir_tpu, and no networkx or pandas (absent on the machine with the
-card); every public name of the JAX package's subpackages exists in the
+chip_smoke.py and the port's card scripts (scripts/torch_parallel_check.py,
+scripts/torch_spmm2_tune.py) pulls in no JAX, nothing of gn_ode_sir_tpu, and
+no networkx or pandas (absent on the machine with the card); every public name of the JAX package's subpackages exists in the
 port's; and chip_smoke.py refuses to run,
 printing no result, without a card or without the rest of the repository.
 """
@@ -29,8 +29,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 sys.path.insert(0, "scripts")
-import torch_baselines_profile, torch_parallel_check, torch_serve_profile, torch_spmm2_tune
-import torch_train_profile
+import torch_parallel_check, torch_spmm2_tune
 print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
 """
 
