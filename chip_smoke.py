@@ -710,11 +710,16 @@ def phase_kernel_k3(graph) -> tuple[dict, list]:
 def phase_kernel_dmp(graph) -> tuple[dict, dict]:
     """K4 (DMP's edge update) and K5 (its marginals) against their plain
     versions on the card at [128, n, E], bit for bit, both fed one node
-    product, with kernel, device-alone and plain times and the bounds: K4
-    reads theta, phi and Ps_ij and writes phi, Ps_ij and the next theta once
-    (24 B an edge update), the int32 edge indices and the node arrays once;
-    K5 reads Ps(0), the node product and the marginals at t - 1 and writes
-    those at t and the pair (node, Ps(0)) that K4 gathers (36 B a node)."""
+    product, in the recursion's scenario-minor layout (edge state [E, 128],
+    node state [n, 128], the marginals [128, n, 3]), with kernel,
+    device-alone and plain times and the bounds: K4 reads theta, phi and
+    Ps_ij and writes phi, Ps_ij and the next theta once (24 B an edge
+    update), the int32 edge indices and the node arrays once; K5 reads Ps(0),
+    the node product and the marginals at t - 1 and writes those at t and
+    the pair (node, Ps(0)) that K4 gathers (36 B a node). K4's row also
+    times the node product (``segment_prod``) on the same theta, near 1 as
+    the recursion holds it: a product that underflows to 0 would end the
+    scatter's compare-and-swap retries (0 over 0 succeeds) and read fast."""
     dev = torch.device("cuda")
     model = DMPSIR.from_graph(graph)
     edges = model.edges(dev)
@@ -722,12 +727,12 @@ def phase_kernel_dmp(graph) -> tuple[dict, dict]:
     g = torch.Generator(device=dev).manual_seed(SEED)
     rand = lambda *shape, lo=0.0, hi=1.0: lo + (hi - lo) * torch.rand(*shape, generator=g,
                                                                      device=dev)
-    theta, phi, ps_ij = rand(b, e, lo=0.4), rand(b, e, hi=0.3), rand(b, e)
-    ps_0, prev = rand(b, n), rand(b, n, 3)
-    w, gamma = rand(b, 1, lo=0.1, hi=0.5), rand(b, 1, lo=0.1, hi=0.5)
-    node = segment_prod(theta, edges.dst, n, dim=-1)
+    theta, phi, ps_ij = rand(e, b, lo=0.9), rand(e, b, hi=0.3), rand(e, b)
+    ps_0, prev = rand(n, b), rand(b, n, 3)
+    w, gamma = rand(1, b, lo=0.1, hi=0.5), rand(1, b, lo=0.1, hi=0.5)
+    node = segment_prod(theta, edges.dst, n)
     out, want_out = torch.empty_like(prev), torch.empty_like(prev)
-    pair, want_pair = torch.empty((b, n, 2), device=dev), torch.empty((b, n, 2), device=dev)
+    pair, want_pair = torch.empty((n, b, 2), device=dev), torch.empty((n, b, 2), device=dev)
     dmp_marginals(out, prev, node, ps_0, gamma, pair)
     dmp_marginals_plain(want_out, prev, node, ps_0, gamma, want_pair)
     nxt, want_nxt = torch.empty_like(theta), torch.empty_like(theta)
@@ -753,6 +758,8 @@ def phase_kernel_dmp(graph) -> tuple[dict, dict]:
                "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                "kernel_ms": time_ms(call, 50), "device_ms": graph_replay_ms(call),
                "plain_ms": time_ms(plain, 10), "library_ms": None, "ok": True}
+        if name == "dmp_step":
+            row["node_product_ms"] = time_ms(lambda: segment_prod(theta, edges.dst, n), 50)
         emit(row)
         rows.append(row)
     del theta, phi, ps_ij, nxt, want_nxt, got, want, pair, want_pair

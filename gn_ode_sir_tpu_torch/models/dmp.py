@@ -20,11 +20,15 @@ theta (1 where the edge has no reverse). The edge structure (``src``,
 once per graph and device; rates stay per trial ([B] or [B, 1]) and
 broadcast on the device, or are given per edge / per node.
 
+The recursion holds its edge state scenario-minor: theta, phi and Ps_ij
+[E, trials], the node product and Ps(0) [n, trials], so that the node
+product's scatter sends a warp's lanes to adjacent scenarios of one node
+and the gathers at an edge's reverse edge and source read contiguous rows.
 A step takes the node product once (``segment_prod``, one
 ``scatter_reduce_``) and then two fused kernels, ``ops/dmp_step.py``: K5
-writes the marginals into the output and K4 updates phi and Ps_ij in place
-and computes theta for the next step (on the CPU their plain versions,
-which :func:`_step` runs too, bit for bit).
+writes the marginals into the output [trials, n, 3] and K4 updates phi and
+Ps_ij in place and computes theta for the next step (on the CPU their plain
+versions, which :func:`_step` runs too, bit for bit).
 """
 
 from __future__ import annotations
@@ -97,7 +101,8 @@ def _cavity(theta: torch.Tensor, edges: DmpEdges) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class _Constants:
     """What every step of :func:`_step` reads: the edges, the rates and
-    Ps(0) at the nodes, each [trials, ...]."""
+    Ps(0) at the nodes, each [..., trials] (``w`` [E or 1, trials or 1],
+    ``gamma`` [n or 1, trials or 1], ``ps_0`` [n, trials])."""
 
     edges: DmpEdges
     w: torch.Tensor
@@ -107,13 +112,14 @@ class _Constants:
 
 def _step(theta, phi, ps_ij, prev, c, *, first: bool):
     """One time step, by the plain versions of K5 and K4. In: theta at t-1
-    (1 before the first step), phi and Ps_ij at t-1, the marginals [trials,
-    n, 3] at t-1. Out: theta, phi, Ps_ij and the marginals at t."""
+    (1 before the first step), phi and Ps_ij at t-1 ([E, trials]), the
+    marginals [trials, n, 3] at t-1. Out: theta, phi, Ps_ij and the marginals
+    at t."""
     theta = theta - c.w * phi
     if first:
         theta = theta + 1e-10  # the reference's guard at t = 1
-    node = segment_prod(theta, c.edges.dst, c.edges.n_nodes, dim=-1)
-    marg, pair = node.new_empty((*node.shape, 3)), node.new_empty((*node.shape, 2))
+    node = segment_prod(theta, c.edges.dst, c.edges.n_nodes)
+    marg, pair = node.new_empty((*node.shape[::-1], 3)), node.new_empty((*node.shape, 2))
     dmp_marginals_plain(marg, prev, node, c.ps_0, c.gamma, pair)
     phi, ps_ij = phi.clone(), ps_ij.clone()
     dmp_step_plain(theta, None, phi, ps_ij, pair, c.w, c.gamma, c.edges.src, c.edges.reverse,
@@ -138,18 +144,19 @@ def _fused() -> bool:
 
 def _fused_steps(out, edges: DmpEdges, w, gamma, ps_0, max_time: int) -> None:
     """Steps 1 .. max_time - 1 into ``out`` [max_time, B, n, 3] (``out[0]``
-    written): the node product, K5 (which also puts the node product and
-    Ps(0) side by side, K4's one gather at an edge's source), K4 a step.
-    theta at t = 1 (with the reference's guard) comes from the plain ops,
-    once."""
-    n = ps_0.shape[-1]
-    ps_ij = ps_0.index_select(-1, edges.src)  # Ps_ij(0) = Ps_i(0), then in place
+    written) from ``ps_0`` [n, B] and the rates ``w`` [E or 1, B or 1] and
+    ``gamma`` [n or 1, B or 1]: the node product, K5 (which also puts the
+    node product and Ps(0) side by side, K4's one gather at an edge's
+    source), K4 a step. theta at t = 1 (with the reference's guard) comes
+    from the plain ops, once."""
+    n = ps_0.shape[0]
+    ps_ij = ps_0.index_select(0, edges.src)  # Ps_ij(0) = Ps_i(0), then in place
     phi = 1.0 - ps_ij
     theta = (1.0 - w * phi) + 1e-10  # the reference's guard at t = 1
     spare = torch.empty_like(theta) if max_time > 2 else None
     pair = torch.empty((*ps_0.shape, 2), dtype=ps_0.dtype, device=ps_0.device)
     for t in range(1, max_time):
-        node = segment_prod(theta, edges.dst, n, dim=-1)
+        node = segment_prod(theta, edges.dst, n)
         dmp_marginals(out[t], out[t - 1], node, ps_0, gamma, pair)
         last = t == max_time - 1
         dmp_step(theta, None if last else spare, phi, ps_ij, pair, w, gamma, edges.src,
@@ -160,7 +167,7 @@ def _fused_steps(out, edges: DmpEdges, w, gamma, ps_0, max_time: int) -> None:
 def _step_loop(out, edges: DmpEdges, w, gamma, ps_0, max_time: int) -> None:
     """What :func:`_fused_steps` computes, a :func:`_step` a time step."""
     c = _Constants(edges=edges, w=w, gamma=gamma, ps_0=ps_0)
-    ps_ij = ps_0.index_select(-1, edges.src)
+    ps_ij = ps_0.index_select(0, edges.src)
     theta, phi = torch.ones((), dtype=ps_0.dtype, device=ps_0.device), 1.0 - ps_ij
     for t in range(1, max_time):
         theta, phi, ps_ij, out[t] = _step(theta, phi, ps_ij, out[t - 1], c, first=t == 1)
@@ -169,9 +176,10 @@ def _step_loop(out, edges: DmpEdges, w, gamma, ps_0, max_time: int) -> None:
 def dmp_recursion(edges: DmpEdges, w, gamma, seeds, *, max_time: int) -> torch.Tensor:
     """The recursion on ``edges``' device. ``w``: [..., E] or [..., 1];
     ``gamma`` and ``seeds``: [..., n] or [..., 1], with the same leading
-    axes. Returns [max_time, ..., n, 3] (t = 0 .. max_time - 1).
-    ``dmp_recursion.edge_updates`` counts the edge updates run since import:
-    trials x E for every time step."""
+    axes. Returns [max_time, ..., n, 3] (t = 0 .. max_time - 1). The rates
+    and Ps(0) are transposed to the recursion's scenario-minor layout once,
+    here. ``dmp_recursion.edge_updates`` counts the edge updates run since
+    import: trials x E for every time step."""
     if max_time < 1:
         raise ValueError(f"max_time must be >= 1, got {max_time}")
     lead = torch.broadcast_shapes(w.shape[:-1], gamma.shape[:-1], seeds.shape[:-1])
@@ -182,10 +190,10 @@ def dmp_recursion(edges: DmpEdges, w, gamma, seeds, *, max_time: int) -> torch.T
     if max_time == 1:
         return out
     trials = int(np.prod(lead, dtype=np.int64))
-    flat = lambda x: x.expand(*lead, x.shape[-1]).reshape(trials, x.shape[-1])
+    minor = lambda x: x.expand(*lead, x.shape[-1]).reshape(trials, x.shape[-1]).t().contiguous()
     steps = _fused_steps if _fused() else _step_loop
-    steps(out.view(max_time, trials, n, 3), edges, flat(w), flat(gamma),
-          flat(ps_0).contiguous(), max_time)
+    steps(out.view(max_time, trials, n, 3), edges, minor(w), minor(gamma), minor(ps_0),
+          max_time)
     dmp_recursion.edge_updates += (max_time - 1) * trials * edges.n_edges
     return out
 

@@ -736,12 +736,13 @@ def test_dmp_serving_on_card_matches_cpu(cuda_device):
             assert a[k] == pytest.approx(b[k], abs=ATOL)
 
 
-def _dmp_case(form, one_way, dev, batch=6):
+def _dmp_case(form, one_way, dev, batch):
     """DMP's edge structure on a power-law graph of 3,000 nodes (``one_way``:
     a third of the edges dropped, so some have no reverse edge) on the CPU
-    and ``dev``, and a step's inputs on the CPU: theta, phi, Ps_ij, the
-    marginals at t - 1, Ps(0), and rates per scenario ([B, 1]), per edge and
-    node ([B, E], [B, n]) or shared by every scenario ([1, E], [1, n])."""
+    and ``dev``, and a step's inputs on the CPU, scenario-minor: theta, phi,
+    Ps_ij [E, B], the marginals at t - 1 [B, n, 3], Ps(0) [n, B], and rates
+    per scenario ([1, B]), per edge and node ([E, B], [n, B]) or shared by
+    every scenario ([E, 1], [n, 1])."""
     from gn_ode_sir_tpu_torch.models import dmp
 
     g = _powerlaw_graph(n=3_000, m=20_000)
@@ -755,29 +756,31 @@ def _dmp_case(form, one_way, dev, batch=6):
     n, e = g.n_nodes, len(src)
     gen = torch.Generator().manual_seed(5)
     rand = lambda *shape, lo=0.0, hi=1.0: lo + (hi - lo) * torch.rand(*shape, generator=gen)
-    rows = {"scenario": (batch, 1, batch, 1), "edge": (batch, e, batch, n),
-            "shared": (1, e, 1, n)}[form]
-    state = {"theta": rand(batch, e, lo=0.4), "phi": rand(batch, e, hi=0.3),
-             "ps_ij": rand(batch, e), "ps_0": rand(batch, n),
+    rows = {"scenario": (1, batch, 1, batch), "edge": (e, batch, n, batch),
+            "shared": (e, 1, n, 1)}[form]
+    state = {"theta": rand(e, batch, lo=0.4), "phi": rand(e, batch, hi=0.3),
+             "ps_ij": rand(e, batch), "ps_0": rand(n, batch),
              "prev": rand(batch, n, 3), "w": rand(*rows[:2], lo=0.1, hi=0.5),
              "gamma": rand(*rows[2:], lo=0.1, hi=0.5)}
     return edges, state
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 6, 37, 128])
 @pytest.mark.parametrize("form", ["scenario", "edge", "shared"])
 @pytest.mark.parametrize("one_way", [False, True], ids=["reverse", "one_way"])
-def test_dmp_step_kernels_match_plain(cuda_device, form, one_way):
+def test_dmp_step_kernels_match_plain(cuda_device, form, one_way, batch):
     """K4 and K5, fed the node product the CPU took, against their plain
-    versions, bit for bit: the marginals, phi, Ps_ij, theta at t + 1, and
-    the last step, which writes no theta."""
+    versions, bit for bit, at B = 1 (an edge a lane), 6 and 37 (a warp over
+    several edges, ragged tiles) and 128: the marginals, phi, Ps_ij, theta
+    at t + 1, and the last step, which writes no theta."""
     from gn_ode_sir_tpu_torch.ops.dmp_step import (dmp_marginals, dmp_marginals_plain,
                                                    dmp_step, dmp_step_plain)
     from gn_ode_sir_tpu_torch.ops.segment import segment_prod
 
-    edges, st = _dmp_case(form, one_way, cuda_device)
+    edges, st = _dmp_case(form, one_way, cuda_device, batch)
     cpu, card = edges["cpu"], edges[cuda_device]
-    node = segment_prod(st["theta"], cpu.dst, cpu.n_nodes, dim=-1)
+    node = segment_prod(st["theta"], cpu.dst, cpu.n_nodes)  # [n, B]
     on = lambda t: t.to(cuda_device)
     nan = lambda t: on(torch.full_like(t, float("nan")))
     out, pair = torch.empty_like(st["prev"]), torch.empty((*node.shape, 2))
@@ -829,6 +832,38 @@ def test_dmp_dispatch_takes_k4_and_k5_every_step(cuda_device):
         assert a["peak_time"] == b["peak_time"]
         for k in ("peak_infected_frac", "final_recovered_frac"):
             assert a[k] == pytest.approx(b[k], abs=ATOL)
+
+
+@pytest.mark.cuda
+def test_traced_dmp_dispatch_holds_one_node_product_scatter_a_step(cuda_device):
+    """A traced DMP dispatch of 128 scenarios as the benchmark's reader
+    (``perfbench/readers_dmp.py``) cuts it: from the first kernel after the
+    upload to the summary's first ``reduce_kernel``, the whole recursion (19
+    K5 and K4 launches, the last K4 the window's last kernel) with one
+    ``ReduceMultiply`` scatter a step, so that no ``reduce_kernel`` inside
+    the recursion cuts it short and ``dmp_roofline.serve`` and
+    ``segment_prod_share.serve`` read numbers."""
+    from gn_ode_sir_tpu_torch.cli import infer
+    from gn_ode_sir_tpu_torch.models.dmp import DMPSIR
+    from perfbench import profiling, readers_dmp
+
+    g = _powerlaw_graph(n=2_000, m=12_000)
+    g = graph_from_edges(g.n_nodes, np.stack([g.src, g.dst], 1), name="powerlaw")
+    model = DMPSIR.from_graph(g, max_time=20)
+    rng = np.random.default_rng(6)
+    seeds = [sorted(rng.choice(g.n_nodes, 2, replace=False)) for _ in range(128)]
+    arrays = infer.scenario_batch(g.n_nodes, seeds, rng.uniform(0.1, 0.5, 128),
+                                  rng.uniform(0.1, 0.5, 128))
+    adj = model.edges(cuda_device)
+    serve = lambda: infer.predict_summaries(model, {}, adj, *arrays, dispatch_batch=128)
+    serve()  # warm-up: the kernels' library, the allocator
+    _, trace = profiling.profiled(serve)
+    names = [op[0] for op in readers_dmp.recursion_ops(trace)]
+    steps = model.max_time - 1
+    assert sum(readers_dmp.is_segment_prod(n) for n in names) == steps
+    assert sum("dmp_marginals_kernel" in n for n in names) == steps
+    assert sum("dmp_edge_kernel" in n for n in names) == steps
+    assert "dmp_edge_kernel" in names[-1]
 
 
 @pytest.mark.cuda

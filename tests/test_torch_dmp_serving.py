@@ -196,9 +196,9 @@ def test_cavity_gather_is_the_scatter_product(one_way):
     cave = dmp.cave_index(src, dst)
     assert bool((cave == len(src)).any()) is one_way
     edges = dmp.DmpEdges.build(src, dst, cave, g.n_nodes, device="cpu")
-    theta = torch.rand((5, len(src)), generator=torch.Generator().manual_seed(1)) * 0.5 + 0.5
-    scattered = segment_prod(theta, torch.as_tensor(cave).long(), len(src) + 1, dim=-1)
-    assert torch.equal(dmp._cavity(theta, edges), scattered[..., :len(src)])
+    theta = torch.rand((len(src), 5), generator=torch.Generator().manual_seed(1)) * 0.5 + 0.5
+    scattered = segment_prod(theta, torch.as_tensor(cave).long(), len(src) + 1)  # [E, B]
+    assert torch.equal(dmp._cavity(theta, edges), scattered[:len(src)])
 
 
 def test_a_repeated_edge_is_refused():

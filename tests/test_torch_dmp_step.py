@@ -1,9 +1,12 @@
 """K4's and K5's plain versions and DMP's fused recursion on the CPU: one
-step of the plain versions gives the bits of ``models/dmp.py::_step``, and
-``dmp_recursion`` (the node product, K5 and K4 a step) gives the bits of the
-recursion that loops ``_step``, for every rate form; the wrappers refuse what
-the kernels cannot take. The kernels themselves are held against their plain
-versions on the card (``tests/test_torch_cuda.py``)."""
+step of the plain versions, in the scenario-minor layout ([E, B] edge state,
+[n, B] node state), gives the bits of ``models/dmp.py::_step`` and of the
+eager ops in the scenario-major layout they replaced, and ``dmp_recursion``
+(the node product, K5 and K4 a step) gives the bits of the recursion that
+loops ``_step``, for every rate form; the benchmark's DMP faults and control
+still move the recursion; the wrappers refuse what the kernels cannot take.
+The kernels themselves are held against their plain versions on the card
+(``tests/test_torch_cuda.py``)."""
 
 import numpy as np
 import pytest
@@ -58,7 +61,8 @@ def _unfused(monkeypatch):
 
 @pytest.mark.parametrize("one_way", [False, True], ids=["reverse", "one_way"])
 @pytest.mark.parametrize("form,b", [("scenario", 4), ("edge", 3), ("scenario", None),
-                                    ("edge", None)])
+                                    ("edge", None), ("scenario", 1), ("edge", 1),
+                                    ("scenario", 37), ("edge", 37)])
 def test_recursion_gives_the_bits_of_the_step_loop(form, b, one_way, monkeypatch):
     edges = _edges(one_way)
     w, gamma, seeds = _rates(form, b, edges, seed=len(form) + (b or 0))
@@ -73,8 +77,9 @@ def test_recursion_gives_the_bits_of_the_step_loop(form, b, one_way, monkeypatch
 
 
 def _eager_step(theta, phi, ps_ij, pr, pi, w, gamma, ps_0, edges, *, first):
-    """One step in the recursion's eager ops, as they stood before K4 and K5:
-    theta, phi, Ps_ij and the marginals [B, n, 3] at t from those at t - 1."""
+    """One step in the recursion's eager ops, as they stood before K4 and K5,
+    scenario-major ([B, E] edge state): theta, phi, Ps_ij and the marginals
+    [B, n, 3] at t from those at t - 1."""
     theta = theta - w * phi
     if first:
         theta = theta + 1e-10
@@ -93,11 +98,11 @@ def _eager_step(theta, phi, ps_ij, pr, pi, w, gamma, ps_0, edges, *, first):
 @pytest.mark.parametrize("form", ["scenario", "edge"])
 @pytest.mark.parametrize("first", [True, False], ids=["first_step", "later_step"])
 def test_plain_step_gives_the_bits_of_step(form, first, one_way):
-    """The step's eager ops from the state at t - 1 against ``_step`` and
-    against the same state moved on by the fused form: theta at t, the node
-    product, then K5's and K4's plain versions. The marginals, phi and Ps_ij
-    at t, and theta at t + 1 as the eager ops make it at the next step, bit
-    for bit."""
+    """The step's eager ops from the state at t - 1, scenario-major, against
+    ``_step`` and against the same state moved on by the fused form, both
+    scenario-minor: theta at t, the node product, then K5's and K4's plain
+    versions. The marginals, phi and Ps_ij at t, and theta at t + 1 as the
+    eager ops make it at the next step, bit for bit."""
     edges = _edges(one_way)
     w, gamma, seeds = _rates(form, 5, edges, seed=7)
     ps_0 = 1.0 - seeds
@@ -109,27 +114,29 @@ def test_plain_step_gives_the_bits_of_step(form, first, one_way):
         pi, pr = marg[..., 1], marg[..., 2]
     want_theta, want_phi, want_ps_ij, want_marg = eager(theta, phi, ps_ij, pr, pi, first=first)
     prev = torch.stack([torch.full_like(pi, float("nan")), pi, pr], dim=-1)
-    c = dmp._Constants(edges=edges, w=w, gamma=gamma, ps_0=ps_0)
-    got = dmp._step(theta, phi, ps_ij, prev, c, first=first)
-    for x, y in zip(got, (want_theta, want_phi, want_ps_ij, want_marg)):
+    minor = lambda x: x.t().contiguous()  # [B, ...] -> [..., B]; a 0-d theta stays
+    w_m, gamma_m, ps_0_m = minor(w), minor(gamma), minor(ps_0)
+    c = dmp._Constants(edges=edges, w=w_m, gamma=gamma_m, ps_0=ps_0_m)
+    got = dmp._step(minor(theta), minor(phi), minor(ps_ij), prev, c, first=first)
+    for x, y in zip(got, (minor(want_theta), minor(want_phi), minor(want_ps_ij), want_marg)):
         assert torch.equal(x, y)
-    theta = theta - w * phi
+    theta, phi, ps_ij = minor(theta) - w_m * minor(phi), minor(phi), minor(ps_ij)
     if first:
         theta = theta + 1e-10
-    assert torch.equal(theta, want_theta)
-    node = segment_prod(theta, edges.dst, edges.n_nodes, dim=-1)
-    out, pair = torch.empty((5, edges.n_nodes, 3)), torch.empty((5, edges.n_nodes, 2))
-    dmp_marginals(out, prev, node, ps_0, gamma, pair)
+    assert torch.equal(theta, minor(want_theta))
+    node = segment_prod(theta, edges.dst, edges.n_nodes)  # [n, B]
+    out, pair = torch.empty((5, edges.n_nodes, 3)), torch.empty((edges.n_nodes, 5, 2))
+    dmp_marginals(out, prev, node, ps_0_m, gamma_m, pair)
     assert torch.equal(out, want_marg)
-    assert torch.equal(pair, torch.stack([node, ps_0], dim=-1))
+    assert torch.equal(pair, torch.stack([node, ps_0_m], dim=-1))
     nxt, phi_t, ps_ij_t = torch.empty_like(theta), phi.clone(), ps_ij.clone()
-    dmp_step(theta, nxt, phi_t, ps_ij_t, pair, w, gamma, edges.src, edges.reverse)
-    assert torch.equal(phi_t, want_phi) and torch.equal(ps_ij_t, want_ps_ij)
-    assert torch.equal(nxt, want_theta - w * want_phi)
+    dmp_step(theta, nxt, phi_t, ps_ij_t, pair, w_m, gamma_m, edges.src, edges.reverse)
+    assert torch.equal(phi_t, minor(want_phi)) and torch.equal(ps_ij_t, minor(want_ps_ij))
+    assert torch.equal(nxt, minor(want_theta - w * want_phi))
     # the last step writes no theta and moves phi and Ps_ij alike
     phi_t, ps_ij_t = phi.clone(), ps_ij.clone()
-    dmp_step_plain(theta, None, phi_t, ps_ij_t, pair, w, gamma, edges.src, edges.reverse)
-    assert torch.equal(phi_t, want_phi) and torch.equal(ps_ij_t, want_ps_ij)
+    dmp_step_plain(theta, None, phi_t, ps_ij_t, pair, w_m, gamma_m, edges.src, edges.reverse)
+    assert torch.equal(phi_t, minor(want_phi)) and torch.equal(ps_ij_t, minor(want_ps_ij))
 
 
 def test_run_and_predict_take_the_fused_step(monkeypatch):
@@ -168,18 +175,39 @@ def test_faults_on_step_or_cavity_take_the_step_loop(monkeypatch):
     assert not torch.equal(whole, backtracking)
 
 
+@pytest.mark.parametrize("planted", ["state_unchanged", "backtracking", "bfloat16_edge_state"])
+def test_benchmark_faults_and_control_still_move_the_recursion(planted):
+    """``perfbench/control_dmp.py``'s faults and its control wrap ``_step``
+    or replace ``_cavity`` without knowing the edge state's layout: each
+    still sends the recursion to ``_step``'s loop and moves a marginal by
+    more than the DMP cell's limit of 1e-4; once it is lifted, the fused
+    recursion is back."""
+    from perfbench import control_dmp
+
+    edges = _edges(True)
+    w, gamma, seeds = _rates("scenario", 6, edges, seed=3)
+    sound = dmp.dmp_recursion(edges, w, gamma, seeds, max_time=10)
+    with (control_dmp.bfloat16_edge_state() if planted == "bfloat16_edge_state"
+          else control_dmp.plant(planted)):
+        assert not dmp._fused()
+        got = dmp.dmp_recursion(edges, w, gamma, seeds, max_time=10)
+    assert dmp._fused()
+    assert got.shape == sound.shape
+    assert float((got - sound).abs().max()) > 1e-4
+
+
 def _step_args(b=2, e=7, n=4):
     z = lambda *s: torch.zeros(s)
-    return dict(theta=z(b, e), theta_next=z(b, e), phi=z(b, e), ps_ij=z(b, e), pair=z(b, n, 2),
-                w=z(b, 1), gamma=z(b, n), src=torch.zeros(e, dtype=torch.int32),
+    return dict(theta=z(e, b), theta_next=z(e, b), phi=z(e, b), ps_ij=z(e, b), pair=z(n, b, 2),
+                w=z(1, b), gamma=z(n, b), src=torch.zeros(e, dtype=torch.int32),
                 reverse=torch.zeros(e, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("name,bad,match", [
-    ("phi", torch.zeros(2, 6), "phi"), ("theta_next", torch.zeros(3, 7), "theta_next"),
-    ("pair", torch.zeros(2, 4, 3), "pair"), ("pair", torch.zeros(2, 5, 2), "gamma must"),
-    ("src", torch.zeros(6, dtype=torch.int32), "src"), ("w", torch.zeros(2, 3), "w must"),
-    ("gamma", torch.zeros(3, 4), "gamma must"), ("theta", torch.zeros(2, 7, 1), "theta must")])
+    ("phi", torch.zeros(6, 2), "phi"), ("theta_next", torch.zeros(7, 3), "theta_next"),
+    ("pair", torch.zeros(4, 2, 3), "pair"), ("pair", torch.zeros(5, 2, 2), "gamma must"),
+    ("src", torch.zeros(6, dtype=torch.int32), "src"), ("w", torch.zeros(3, 2), "w must"),
+    ("gamma", torch.zeros(4, 3), "gamma must"), ("theta", torch.zeros(7, 2, 1), "theta must")])
 def test_step_refuses_shapes_that_do_not_fit(name, bad, match):
     args = _step_args()
     args[name] = bad
@@ -188,18 +216,22 @@ def test_step_refuses_shapes_that_do_not_fit(name, bad, match):
 
 
 def test_marginals_refuse_shapes_that_do_not_fit():
+    """out and prev [B, n, 3]; node, ps_0 [n, B]; gamma [n or 1, B or 1];
+    pair [n, B, 2] (B = 2, n = 4)."""
     z = torch.zeros
     with pytest.raises(ValueError, match="out"):
-        dmp_marginals(z(2, 4, 2), z(2, 4, 3), z(2, 4), z(2, 4), z(2, 1), z(2, 4, 2))
+        dmp_marginals(z(2, 4, 2), z(2, 4, 3), z(4, 2), z(4, 2), z(1, 2), z(4, 2, 2))
     with pytest.raises(ValueError, match="prev"):
-        dmp_marginals(z(2, 4, 3), z(1, 4, 3), z(2, 4), z(2, 4), z(2, 1), z(2, 4, 2))
+        dmp_marginals(z(2, 4, 3), z(1, 4, 3), z(4, 2), z(4, 2), z(1, 2), z(4, 2, 2))
+    with pytest.raises(ValueError, match="ps_0"):
+        dmp_marginals(z(2, 4, 3), z(2, 4, 3), z(4, 2), z(2, 4), z(1, 2), z(4, 2, 2))
     with pytest.raises(ValueError, match="gamma"):
-        dmp_marginals(z(2, 4, 3), z(2, 4, 3), z(2, 4), z(2, 4), z(2, 3), z(2, 4, 2))
+        dmp_marginals(z(2, 4, 3), z(2, 4, 3), z(4, 2), z(4, 2), z(3, 2), z(4, 2, 2))
     with pytest.raises(ValueError, match="pair"):
-        dmp_marginals(z(2, 4, 3), z(2, 4, 3), z(2, 4), z(2, 4), z(2, 1), z(2, 4, 3))
+        dmp_marginals(z(2, 4, 3), z(2, 4, 3), z(4, 2), z(4, 2), z(1, 2), z(2, 4, 2))
     with pytest.raises(ValueError, match="cuda or cpu"):
-        dmp_marginals(*(t.to("meta") for t in (z(2, 4, 3), z(2, 4, 3), z(2, 4), z(2, 4),
-                                               z(2, 1), z(2, 4, 2))))
+        dmp_marginals(*(t.to("meta") for t in (z(2, 4, 3), z(2, 4, 3), z(4, 2), z(4, 2),
+                                               z(1, 2), z(4, 2, 2))))
 
 
 def test_k4_kernel_path_refuses_int64_indices_theta_over_itself_and_strided_rates():
@@ -213,7 +245,7 @@ def test_k4_kernel_path_refuses_int64_indices_theta_over_itself_and_strided_rate
     with pytest.raises(ValueError, match="beside"):
         k4._launch_step(**{**args, "theta_next": args["theta"]})
     with pytest.raises(ValueError, match="rates contiguous"):
-        k4._launch_step(**{**args, "gamma": torch.zeros(4, 2).t()})
+        k4._launch_step(**{**args, "gamma": torch.zeros(2, 4).t()})
 
 
 def test_cpu_calls_are_not_counted():
@@ -221,10 +253,10 @@ def test_cpu_calls_are_not_counted():
     edges = _edges(True)
     dmp.dmp_recursion(edges, *_rates("edge", 2, edges), max_time=4)
     assert (dmp_step.launches, dmp_marginals.launches) == launches
-    out, pair = torch.empty(2, 3, 3), torch.empty(2, 3, 2)
-    dmp_marginals_plain(out, torch.zeros(2, 3, 3), torch.ones(2, 3), torch.ones(2, 3),
-                        torch.zeros(2, 1), pair)
-    assert torch.equal(out[..., 0], torch.ones(2, 3)) and torch.equal(pair, torch.ones(2, 3, 2))
+    out, pair = torch.empty(2, 3, 3), torch.empty(3, 2, 2)
+    dmp_marginals_plain(out, torch.zeros(2, 3, 3), torch.ones(3, 2), torch.ones(3, 2),
+                        torch.zeros(1, 2), pair)
+    assert torch.equal(out[..., 0], torch.ones(2, 3)) and torch.equal(pair, torch.ones(3, 2, 2))
 
 
 def test_k4_and_k5_share_one_library(monkeypatch, tmp_path):

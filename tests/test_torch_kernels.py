@@ -59,24 +59,24 @@ def _k4():
     b, e, n = 2, 7, 4
     z = lambda *s: torch.zeros(s)
     return (k45._launch_step,
-            dict(theta=z(b, e), theta_next=z(b, e), phi=z(b, e), ps_ij=z(b, e), pair=z(b, n, 2),
-                 w=z(b, 1), gamma=z(b, n), src=torch.zeros(e, dtype=torch.int32),
+            dict(theta=z(e, b), theta_next=z(e, b), phi=z(e, b), ps_ij=z(e, b), pair=z(n, b, 2),
+                 w=z(1, b), gamma=z(n, b), src=torch.zeros(e, dtype=torch.int32),
                  reverse=torch.zeros(e, dtype=torch.int32)),
             lambda: k45.dmp_step.launches,
-            {"dtype": ("phi", torch.zeros(b, e, dtype=torch.float64)),
-             "strided": ("theta", z(e, b).t()),
-             "foreign": ("w", torch.zeros(b, 1, device="meta"), "tensors on")})
+            {"dtype": ("phi", torch.zeros(e, b, dtype=torch.float64)),
+             "strided": ("theta", z(b, e).t()),
+             "foreign": ("w", torch.zeros(1, b, device="meta"), "tensors on")})
 
 
 def _k5():
     b, n = 2, 4
     z = lambda *s: torch.zeros(s)
-    return (k45._launch_marginals, dict(out=z(b, n, 3), prev=z(b, n, 3), node=z(b, n),
-                                        ps_0=z(b, n), gamma=z(b, 1), pair=z(b, n, 2)),
+    return (k45._launch_marginals, dict(out=z(b, n, 3), prev=z(b, n, 3), node=z(n, b),
+                                        ps_0=z(n, b), gamma=z(1, b), pair=z(n, b, 2)),
             lambda: k45.dmp_marginals.launches,
-            {"dtype": ("pair", torch.zeros(b, n, 2, dtype=torch.float64)),
-             "strided": ("pair", z(b, 2, n).transpose(1, 2)),
-             "foreign": ("gamma", torch.zeros(b, 1, device="meta"), "tensors on")})
+            {"dtype": ("pair", torch.zeros(n, b, 2, dtype=torch.float64)),
+             "strided": ("pair", z(n, 2, b).transpose(1, 2)),
+             "foreign": ("gamma", torch.zeros(1, b, device="meta"), "tensors on")})
 
 
 @pytest.mark.parametrize("kernel,case", [
