@@ -1,16 +1,19 @@
 """The readings that set the limits of the output check, at a cell's own size.
 
     python3 perfbench/control.py --workload <cell> [--seeds 12] [--control-seeds 3]
-        [--fault-seeds 3] [--seconds 2] [--out FILE]
+        [--fault-seeds 3] [--seconds 2] [--first-seed N] [--out FILE]
 
 In one process, on a CUDA card: the program's sound runs on ``--seeds``
 seeds (set-up, a short window at the cell's own load, the check); the
-control on ``--control-seeds`` seeds, which for a GN-ODE cell is the program
-with TF32 on (its float32 products one precision below the configuration's)
-and for a label cell the reference with bfloat16 coin thresholds put in the
-program's place; and each fault the cell can have (``faults.py``) on
+control on ``--control-seeds`` seeds; and each fault the cell can have on
 ``--fault-seeds`` seeds. One JSON line per run, with every number compared
-and the seconds the check took. The benchmark's own runs do not run this.
+and the seconds the check took, then each kind's least and largest reading.
+The benchmark's own runs do not run this.
+
+What a reading of each kind runs in is the cell's driver's
+(``drivers/<name>.py``): ``control_run(kind)`` gives the context (the
+control, such as TF32 on or the edge state in bfloat16) and the keyword
+arguments its check takes; ``faults.plant`` asks the driver for a fault.
 """
 
 from __future__ import annotations
@@ -39,27 +42,20 @@ def reading(cell: str, seed: int, seconds: float, *, kind: str = "sound", fault=
     wl = workload or harness.load_workload(cell)
     cfg = copy.deepcopy(config or harness.load_config(wl["config"]))
     driver = harness.load_module("drivers", wl["driver"])
-    tf32 = kind == "control" and wl["driver"] != "labels"
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
-    extra = {"control": True} if kind == "control" and wl["driver"] == "labels" else {}
-    detail = {}
-    if wl["driver"] == "train":
-        extra["detail"] = detail  # every recorded step's readings, for the look
+    around, extra = driver.control_run(kind)
     planted = faults.plant(wl["driver"], fault) if fault else contextlib.nullcontext()
-    with planted:
+    with around, planted:
         st = driver.setup(cfg, wl["traffic"], seed, device)
         rec = driver.window(st, seconds)
         t0 = time.perf_counter()
         checks = driver.check(st, rec, wl["check"], **extra)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return {"cell": cell, "kind": kind, "fault": fault, "seed": seed,
             "check_s": time.perf_counter() - t0, "attempted": driver.attempted(rec)[0],
             "correct": harness.judged(checks),
             "values": {c["name"]: c["value"] for c in checks},
             "compared": {c["name"]: c["compared"] for c in checks if "compared" in c},
-            **({"detail": detail} if detail else {})}
+            # what the check filled in for the look (the training steps' readings)
+            **{k: v for k, v in extra.items() if isinstance(v, dict) and v}}
 
 
 def main(argv=None) -> int:
@@ -80,19 +76,19 @@ def main(argv=None) -> int:
     seeds = [args.first_seed + 7919 * k for k in range(args.seeds)]
     plan = [("sound", None, s) for s in seeds]
     plan += [("control", None, s) for s in seeds[:args.control_seeds]]
-    plan += [("fault", f, s) for f in faults.applicable(wl["driver"], cfg)
+    plan += [("fault", f, s) for f in faults.applicable(wl["driver"], cfg, wl["traffic"])
              for s in seeds[:args.fault_seeds]]
-    out = open(args.out, "a") if args.out else None
     rows = []
-    for kind, fault, seed in plan:
-        row = reading(args.workload, seed, args.seconds, kind=kind, fault=fault)
-        rows.append(row)
-        line = json.dumps(row)
-        print(line, flush=True)
-        if out:
-            out.write(line + "\n")
-            out.flush()
-        torch.cuda.empty_cache()
+    with open(args.out, "a") if args.out else contextlib.nullcontext() as out:
+        for kind, fault, seed in plan:
+            row = reading(args.workload, seed, args.seconds, kind=kind, fault=fault)
+            rows.append(row)
+            line = json.dumps(row)
+            print(line, flush=True)
+            if out:
+                out.write(line + "\n")
+                out.flush()
+            torch.cuda.empty_cache()
     names = list(rows[0]["values"])
     for kind in ("sound", "control", "fault"):
         got = [r for r in rows if r["kind"] == kind]

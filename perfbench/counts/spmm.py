@@ -1,9 +1,9 @@
 """K1's least time for one apply, ``out[b, d] = sum_{dst[e]=d} w[e] x[b, src[e]]``.
 
-The count of ``chip_smoke.py::spmm2_bound``, frozen here: x read once, the
-plan's src and w read once, its row pointer read once, the float32 result
-written once, over the memory rate; two operations an edge, scenario and
-column over the float32 rate. Here ``n`` is the graph's own node count: rows
+The one copy of this count (``chip_smoke.py::spmm2_bound`` calls it): x
+read once, the plan's src and w read once, its row pointer read once, the
+float32 result written once, over the memory rate; two operations an edge,
+scenario and column over the float32 rate. Here ``n`` is the graph's own node count: rows
 a plan carries beyond it (a multi-graph train view padded to 7,168) are not
 work these inputs need.
 """

@@ -12,12 +12,13 @@ reference, which draws the same coin words.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
-from perfbench import harness, inputs
+from perfbench import faults, harness, inputs
 from perfbench.reference import mc_sir as ref
 
 
@@ -127,3 +128,51 @@ def check(st: State, rec: dict, limits: dict, control: bool = False) -> list[dic
 
 def attempted(rec: dict) -> tuple[int, int]:
     return rec["trials"], rec["failed"]
+
+
+# The per-layer metrics that read the spans of this driver's path
+# (``tests/test_spans.py``).
+SPAN_METRICS = ("chunk_idle_ms.labels",)
+
+
+# --- faults, control and CPU cut (``faults.py``, ``control.py``, ``tests/small.py``)
+
+FAULTS = ("state_unchanged", "half_batch", "answer_altered")
+
+
+def plant(fault: str):
+    """``state_unchanged``: K2's step returns I and R as they were;
+    ``half_batch``: half of the simulations, the sums doubled;
+    ``answer_altered``: the probabilities at one label time are the ones
+    before it."""
+    from gn_ode_sir_tpu_torch.sim import mc_sir
+
+    if fault == "state_unchanged":
+        return faults._patched(mc_sir, "sir_step", lambda i, r, *a, **k: (i, r))
+    if fault == "half_batch":
+        orig = mc_sir._simulate_trials
+
+        def half(a, masks, betas, gammas, seeds, *, sims, max_time, coins):
+            return 2 * orig(a, masks, betas, gammas, seeds, sims=max(1, sims // 2),
+                            max_time=max_time, coins=coins)
+
+        return faults._patched(mc_sir, "_simulate_trials", half)
+    if fault == "answer_altered":
+        orig = mc_sir._to_probs
+        return faults._patched(
+            mc_sir, "_to_probs", lambda sums, sims: tuple(
+                faults._off_by_one(torch.as_tensor(p), 0).numpy() for p in orig(sums, sims)))
+    raise ValueError(f"unknown fault {fault!r}")
+
+
+def control_run(kind: str):
+    """What a ``control.py`` reading of ``kind`` runs in (nothing) and the
+    keyword arguments its check takes: for the control, the reference with
+    bfloat16 coin thresholds in the program's place."""
+    return contextlib.nullcontext(), {"control": kind == "control"}
+
+
+def cpu_cut(wl: dict, cfg: dict) -> None:
+    """A few trials of 64 simulations a call."""
+    cfg["labels"]["sims"] = 64
+    wl["traffic"].update(trials_per_call=3, check_trials=2)

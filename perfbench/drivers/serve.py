@@ -11,13 +11,14 @@ closed, a sample drawn from the seed is scored by the reference.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 
 import numpy as np
 import torch
 
-from perfbench import harness, inputs, program
+from perfbench import faults, harness, inputs, program
 from perfbench.reference import gnode as ref
 
 
@@ -111,19 +112,29 @@ def shapes(st: State) -> list[dict]:
 
 # At some scenarios the GN-ODE's trajectory amplifies rounding, and any two
 # float32 computations of it disagree far beyond float32's rounding (PERF.md,
-# "Cells"). A scenario's summary is compared only where two float32 runs of
-# the reference (the edges in two orders) both lie within this of the
-# reference in float64.
+# "Cells"). A scenario's peak or final fraction is compared only where two
+# float32 runs of the reference (the edges in two orders) both lie within
+# this of the reference in float64.
 NOISE = 1e-6
+# Two witnesses do not find every such scenario: at a few that they pass the
+# program's float32 result lies tens of times farther out than theirs, which
+# PERF.md leaves open. A lower precision moves every scenario, so
+# ``final_gap_q90`` reads this quantile of the final recovered gaps, which a
+# few scenarios do not reach; ``summary_gap`` keeps the widest gap, for what
+# lies in a few scenarios or in the peak.
+QUANTILE = 0.9
 
 
 def check(st: State, rec: dict, limits: dict) -> list[dict]:
     """The reference's summaries of a sample of the requests, drawn from the
-    seed, in float64. ``summary_gap``: the widest of the gaps of a peak
-    infected fraction and of a final recovered fraction (each where the
-    reference's float32 runs are within ``NOISE`` of it) and of the gap by
-    which the mean infected probability at the program's peak time lies
-    below the reference's peak."""
+    seed, in float64 (the field with K1 and K3, the decoder, the summary
+    reduction), over the sampled scenarios where the reference's float32
+    runs are within ``NOISE`` of it. ``summary_gap``: the widest of the gaps
+    of a peak infected fraction and of a final recovered fraction, and of
+    the gap by which the mean infected probability at the program's peak
+    time lies below the reference's peak. ``final_gap_q90``: the
+    ``QUANTILE`` of the final recovered gaps. Both read inf where a sampled
+    summary is not finite, the second also where no scenario is kept."""
     m = st.cfg["model"]
     st.program = None
     torch.cuda.empty_cache()
@@ -134,11 +145,12 @@ def check(st: State, rec: dict, limits: dict) -> list[dict]:
     params64 = {k: {n: t.double() for n, t in v.items()} for k, v in st.params.items()}
     order = torch.randperm(len(src), generator=torch.Generator().manual_seed(st.seed)).to(device)
     n = st.graph["n"]
-    gap, kept, total = 0.0, 0, 0
+    gap, finals, kept, total, finite = 0.0, [], 0, 0, True
     with ref.float32_exact(), torch.no_grad():
         for k in sorted(pick):
             scen, got = st.sent[k]
             b = len(scen)
+            finite = finite and bool(np.isfinite(got).all())
             i0 = torch.zeros((b, n), device=device)
             for j, s in enumerate(scen):
                 i0[j, s[0]] = 1.0
@@ -155,12 +167,71 @@ def check(st: State, rec: dict, limits: dict) -> list[dict]:
                 kept, total = kept + int(ok.sum()), total + b
                 if ok.any():
                     gap = max(gap, float(np.abs(got[ok, col] - want[ok, col]).max()))
+                if col == 2:
+                    finals.extend(np.abs(got[ok, 2] - want[ok, 2]))
             at = got[:, 1].astype(np.int64).clip(0, curve.shape[0] - 1)
             below = want[:, 0] - curve[at, np.arange(b)]
             gap = max(gap, float(below.max()) if (got[:, 1] == at).all() else float("inf"))
-    print(f"summaries compared: {kept} of {total}", file=sys.stderr)
-    return [{"name": "summary_gap", "value": gap, "limit": limits["summary_gap"]}]
+    compared = (f"{kept} of {total} peak and final fractions",
+                f"{len(finals)} of {total // 2} final recovered fractions")
+    print(f"compared: {compared[0]}; {compared[1]}", file=sys.stderr)
+    q90 = float(np.quantile(finals, QUANTILE)) if finals and finite else float("inf")
+    return [{"name": "summary_gap", "value": gap if finite else float("inf"),
+             "limit": limits["summary_gap"], "compared": compared[0]},
+            {"name": "final_gap_q90", "value": q90, "limit": limits["final_gap_q90"],
+             "compared": compared[1]}]
 
 
 def attempted(rec: dict) -> tuple[int, int]:
     return rec["requests"], rec["failed"]
+
+
+# The per-layer metrics that read the spans of this driver's path
+# (``tests/test_spans.py``).
+SPAN_METRICS = ("forward_ms.serve", "readback_wait_ms.serve")
+
+
+# --- faults, control and CPU cut (``faults.py``, ``control.py``, ``tests/small.py``)
+
+FAULTS = ("state_unchanged", "half_batch", "answer_altered")
+
+
+def applicable(cfg: dict, traffic: dict) -> tuple:
+    return faults.serving_applicable(FAULTS, traffic)
+
+
+def plant(fault: str):
+    """``state_unchanged``: K3 (``gnode_step``, as ``models/gnode.py`` calls
+    it) launches and its state is then put back as it was, the label-time
+    copy written from it, so the fused forward still runs; ``half_batch``
+    and ``answer_altered``: the serving dispatch's (``faults.py``)."""
+    from gn_ode_sir_tpu_torch.models import gnode
+
+    if fault == "state_unchanged":
+        k3 = gnode.gnode_step
+
+        def held(ai, zs, zi, state, beta, gamma, dt, out=None):
+            before = state.clone()
+            k3(ai, zs, zi, state, beta, gamma, dt, out=out)
+            state.copy_(before)
+            if out is not None:
+                out.copy_(before.permute(1, 2, 0, 3))
+
+        return faults._patched(gnode, "gnode_step", held)
+    if fault == "half_batch":
+        return faults.half_dispatch()
+    if fault == "answer_altered":
+        return faults.late_summary()
+    raise ValueError(f"unknown fault {fault!r}")
+
+
+def control_run(kind: str):
+    """What a ``control.py`` reading of ``kind`` runs in (the control: TF32
+    on) and the keyword arguments its check takes (none)."""
+    return (faults.tf32() if kind == "control" else contextlib.nullcontext()), {}
+
+
+def cpu_cut(wl: dict, cfg: dict) -> None:
+    """K1's plain version, a few requests checked and traced."""
+    cfg["model"]["spmm"] = "pallas2"
+    wl["traffic"].update(check_requests=4, trace_requests=2)

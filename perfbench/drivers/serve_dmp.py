@@ -14,6 +14,7 @@ closed, a sample drawn from the seed is scored by the float64 reference
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import time
@@ -21,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from perfbench import harness, inputs
+from perfbench import faults, harness, inputs
 from perfbench.reference import dmp as ref
 
 
@@ -127,7 +128,8 @@ def check(st: State, rec: dict, limits: dict) -> list[dict]:
     seed, in float64. ``dmp_summary_gap``: the widest of the gaps of a peak
     infected fraction and of a final recovered fraction, and of the gap by
     which the reference's mean infected probability at the program's peak
-    time lies below the reference's peak (inf where that time is no time)."""
+    time lies below the reference's peak (inf where that time is no time, or
+    where a sampled summary is not finite)."""
     st.program = None
     device = st.device
     if device.type == "cuda":
@@ -141,6 +143,8 @@ def check(st: State, rec: dict, limits: dict) -> list[dict]:
         for k in sorted(pick):
             scen, got = st.sent[k]
             b = len(scen)
+            if not np.isfinite(got).all():
+                gap = float("inf")
             seeds = torch.zeros((b, n), dtype=torch.float64, device=device)
             for j, s in enumerate(scen):
                 seeds[j, s[0]] = 1.0
@@ -161,3 +165,82 @@ def check(st: State, rec: dict, limits: dict) -> list[dict]:
 
 def attempted(rec: dict) -> tuple[int, int]:
     return rec["requests"], rec["failed"]
+
+
+# The per-layer metrics that read the spans of this driver's path
+# (``tests/test_spans.py``).
+SPAN_METRICS = ("forward_ms.serve", "readback_wait_ms.serve")
+
+
+# --- faults, control and CPU cut (``faults.py``, ``control.py``, ``tests/small.py``)
+
+FAULTS = ("state_unchanged", "half_batch", "answer_altered", "backtracking")
+
+
+def applicable(cfg: dict, traffic: dict) -> tuple:
+    return faults.serving_applicable(FAULTS, traffic)
+
+
+def _on_k4(wrap):
+    """K4 (``dmp_step``, as ``models/dmp.py`` calls it) replaced by
+    ``wrap(k4)`` for the life of the context: the recursion keeps its fused
+    path, so the node product, K5 and K4 still launch."""
+    from gn_ode_sir_tpu_torch.models import dmp
+
+    return faults._patched(dmp, "dmp_step", wrap(dmp.dmp_step))
+
+
+def _held(k4):
+    def step(theta, theta_next, *rest):
+        k4(theta, theta_next, *rest)
+        if theta_next is not None:
+            theta_next.copy_(theta)
+
+    return step
+
+
+def _no_cavity(k4):
+    def step(theta, theta_next, phi, ps_ij, pair, w, gamma, src, reverse):
+        k4(theta, theta_next, phi, ps_ij, pair, w, gamma, src, torch.full_like(reverse, -1))
+
+    return step
+
+
+def _bfloat16_state(k4):
+    def step(theta, theta_next, phi, ps_ij, *rest):
+        k4(theta, theta_next, phi, ps_ij, *rest)
+        for x in (theta_next, phi, ps_ij):
+            if x is not None:
+                x.copy_(x.to(torch.bfloat16))
+
+    return step
+
+
+def plant(fault: str):
+    """``state_unchanged``: theta held, the old theta copied into K4's
+    next-theta buffer after each K4; ``backtracking``: K4 given no reverse
+    edges, so every edge's cavity factor is 1 and Ps_ij is the source's full
+    product; ``half_batch`` and ``answer_altered``: the serving dispatch's
+    (``faults.py``)."""
+    if fault == "state_unchanged":
+        return _on_k4(_held)
+    if fault == "backtracking":
+        return _on_k4(_no_cavity)
+    if fault == "half_batch":
+        return faults.half_dispatch()
+    if fault == "answer_altered":
+        return faults.late_summary()
+    raise ValueError(f"unknown fault {fault!r}")
+
+
+def control_run(kind: str):
+    """What a ``control.py`` reading of ``kind`` runs in (the control: the
+    edge state, theta, phi and Ps_ij, rounded to bfloat16 after each K4, one
+    precision below the configuration's float32) and the keyword arguments
+    its check takes (none)."""
+    return (_on_k4(_bfloat16_state) if kind == "control" else contextlib.nullcontext()), {}
+
+
+def cpu_cut(wl: dict, cfg: dict) -> None:
+    """A few requests checked and traced."""
+    wl["traffic"].update(check_requests=4, trace_requests=2)

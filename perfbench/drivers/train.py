@@ -21,6 +21,7 @@ Adam's update by itself, and checks the window call's mean loss.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import statistics
 import sys
@@ -28,7 +29,7 @@ import sys
 import numpy as np
 import torch
 
-from perfbench import harness, inputs, program
+from perfbench import faults, harness, inputs, program
 from perfbench.reference import gnode as ref
 
 
@@ -422,3 +423,66 @@ def _tree(flat: dict) -> dict:
 
 def attempted(rec: dict) -> tuple[int, int]:
     return rec["steps"], rec["failed"]
+
+
+# The per-layer metrics that read the spans of this driver's path
+# (``tests/test_spans.py``).
+SPAN_METRICS = ("forward_host_ms.train", "backward_host_ms.train", "optimizer_host_ms.train")
+# The field of ``State`` that holds what the optimiser's hooks recorded: a
+# check with none of it reads inf (``tests/test_faults.py``).
+RECORDED = "recorded"
+
+
+# --- faults, control and CPU cut (``faults.py``, ``control.py``, ``tests/small.py``)
+
+FAULTS = ("state_unchanged", "half_batch", "answer_altered")
+
+
+def applicable(cfg: dict, traffic: dict) -> tuple:
+    if cfg["training"]["batch_size"] < 2:
+        return tuple(f for f in FAULTS if f != "half_batch")  # no half of one trial
+    return FAULTS
+
+
+def plant(fault: str):
+    """``state_unchanged``: the optimiser's step leaves the parameters as
+    they were; ``half_batch``: a minibatch's loss over its first half;
+    ``answer_altered``: the prediction at one label time is the one before
+    it."""
+    from gn_ode_sir_tpu_torch.models.gnode import GNODE
+    from gn_ode_sir_tpu_torch.train import loop
+
+    if fault == "state_unchanged":
+        return faults._patched(torch.optim.Adam, "step", lambda self, closure=None: None)
+    if fault == "half_batch":
+        orig = loop._batch_loss
+
+        def half(model, params, adj_fn, mask_fn, d, bidx, bw, gi, **kw):
+            k = max(1, len(bidx) // 2)
+            return orig(model, params, adj_fn, mask_fn, d, bidx[:k], bw[:k], gi[:k], **kw)
+
+        return faults._patched(loop, "_batch_loss", half)
+    if fault == "answer_altered":
+        orig = GNODE.predict
+        return faults._patched(GNODE, "predict",
+                               lambda self, *a, **k: faults._off_by_one(orig(self, *a, **k), 0))
+    raise ValueError(f"unknown fault {fault!r}")
+
+
+def control_run(kind: str):
+    """What a ``control.py`` reading of ``kind`` runs in (the control: TF32
+    on) and the keyword arguments its check takes (``detail``: every
+    recorded step's readings, for the look)."""
+    return (faults.tf32() if kind == "control" else contextlib.nullcontext()), {"detail": {}}
+
+
+def cpu_cut(wl: dict, cfg: dict) -> None:
+    """K1's plain version, a few steps a call, few trials."""
+    cfg["model"]["spmm"] = "pallas2"
+    if len(cfg["graphs"]) > 1:
+        cfg["model"]["mg_adj"] = "pallas2"
+        wl["traffic"].update(trials_per_graph=10, steps_per_call=3, first_steps=2,
+                             check_call_within=2, trace_steps=4)
+    else:
+        wl["traffic"].update(trials_per_graph=6, steps_per_call=4, first_steps=2,
+                             check_call_within=2, trace_steps=3)

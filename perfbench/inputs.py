@@ -3,9 +3,9 @@ same inputs, and both the program and the reference get them.
 
 - Graphs: seeded Chung-Lu power-law graphs with exactly the published node
   and directed-edge counts (the real graph pickles are not in the
-  repository). :func:`powerlaw_pairs` is ``chip_smoke.py::powerlaw_graph``
-  frozen here, up to the undirected pairs; the program builds its ``Graph``
-  from them, the reference its own edge index.
+  repository). :func:`powerlaw_pairs` is the one copy of the generator:
+  ``chip_smoke.py::powerlaw_graph`` calls it. The program builds its
+  ``Graph`` from the pairs, the reference its own edge index.
 - Trials: seed sets, beta and gamma from a numpy generator.
 - Parameters and synthetic label trajectories: on the device, from a
   ``torch.Generator`` there, in a few large calls.

@@ -2,10 +2,10 @@
 
 The device's busy time is the union of its operation spans, not their sum:
 under programmatic dependent launch K1's fixup kernel starts while its
-segment kernel runs, and a sum counts that overlap twice. Kernel groups and
-the union follow ``scripts/torch_serve_profile.py`` (``_kernel_group`` and
-``summarize_profile``, frozen here; the script stays as it is). Idle gaps
-are named by the host operation that was running in their middle.
+segment kernel runs, and a sum counts that overlap twice. This module is
+the repository's one copy of the kernel groups and the union;
+``scripts/torch_spmm2_tune.py`` reads it too. Idle gaps are named by the
+host operation that was running in their middle.
 """
 
 from __future__ import annotations
@@ -20,8 +20,7 @@ TOP = 10  # entries of each breakdown list
 
 
 def kernel_group(name: str) -> str:
-    """The group of a device operation, by its name (copy of
-    ``scripts/torch_serve_profile.py::_kernel_group``)."""
+    """The group of a device operation, by its name."""
     low = name.lower()
     if "spmm2" in low:
         return "K1 spmm2"

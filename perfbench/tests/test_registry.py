@@ -11,7 +11,7 @@ from perfbench import faults, harness
 BENCH = harness.load_benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-DRIVER_API = ("setup", "window", "traced", "check", "shapes", "attempted")
+DRIVER_API = ("setup", "window", "traced", "check", "shapes", "attempted", "plant", "control_run")
 
 
 @pytest.mark.parametrize("cell", [c["name"] for c in BENCH["workloads"]])
@@ -24,7 +24,10 @@ def test_workload_names_existing_files(cell):
     assert (harness.HERE / "reference" / f"{cfg['reference']}.py").is_file()
     driver = harness.load_module("drivers", wl["driver"])
     assert all(callable(getattr(driver, f, None)) for f in DRIVER_API)
-    assert faults.applicable(wl["driver"], cfg)
+    assert set(faults.applicable(wl["driver"], cfg, wl["traffic"])) <= set(driver.FAULTS)
+    assert faults.applicable(wl["driver"], cfg, wl["traffic"])
+    for name in getattr(driver, "SPAN_METRICS", ()):  # the cell reports its driver's spans
+        assert cell in next(m for m in BENCH["per_layer"] if m["name"] == name)["workloads"]
     metrics = harness.cell_metrics(BENCH, cell, False) + harness.cell_metrics(BENCH, cell, True)
     names = {m["name"] for m in metrics}
     assert "setup_s" in names and len(harness.cell_metrics(BENCH, cell, False)) >= 2

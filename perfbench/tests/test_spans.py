@@ -11,10 +11,12 @@ from torch.profiler import ProfilerActivity, profile
 from perfbench import harness, profiling, spans
 from perfbench.tests import small
 
-METRICS = {"train": ["forward_host_ms.train", "backward_host_ms.train",
-                     "optimizer_host_ms.train"],
-           "serve": ["forward_ms.serve", "readback_wait_ms.serve"],
-           "labels": ["chunk_idle_ms.labels"]}
+BENCH = harness.load_benchmark()
+# the span readers of each cell, as its driver declares them
+READERS = {c["name"]: list(getattr(driver, "SPAN_METRICS", ()))
+           for c in BENCH["workloads"]
+           for driver in [harness.load_module("drivers", harness.load_workload(c["name"])["driver"])]}
+READERS = {c: names for c, names in READERS.items() if names}
 
 
 def _run(host=(), device=(), traced=None, **extra):
@@ -46,7 +48,7 @@ def test_serving_phases_per_request():
     assert _read("readback_wait_ms.serve", run) == pytest.approx(54.0)
 
 
-@pytest.mark.parametrize("name", [m for ms in METRICS.values() for m in ms])
+@pytest.mark.parametrize("name", list(dict.fromkeys(m for ms in READERS.values() for m in ms)))
 def test_none_without_its_spans(name):
     """A program without the spans (or a stretch without a trace, or with
     no unit) gives None, never 0."""
@@ -125,7 +127,7 @@ def _cpu_profiled(fn):
     return out, profiling.reduce_events(prof.events(), wall_s)
 
 
-@pytest.mark.parametrize("cell", ["c7_enron.train_b1", "c7_enron.serve_b8", "c7_enron.labels"])
+@pytest.mark.parametrize("cell", list(READERS))
 def test_readers_on_the_program(cell):
     """The program's span names are the readers': each reader finds its
     spans in a CPU profile of the cell's path at a small size."""
@@ -134,10 +136,10 @@ def test_readers_on_the_program(cell):
     st = driver.setup(cfg, wl["traffic"], small.SEED, "cpu")
     traced, trace = _cpu_profiled(lambda: driver.traced(st))
     run = SimpleNamespace(trace=trace, traced=traced)
-    for name in METRICS[wl["driver"]]:
+    for name in READERS[cell]:
         value = _read(name, run)
         assert value is not None and value > 0, name
-    if wl["driver"] == "labels":  # no device: the spans are idle throughout
+    if "chunk_idle_ms.labels" in READERS[cell]:  # no device: the spans are idle throughout
         host = profiling.merge([s for n in ("labels.prepare", "labels.unpack", "labels.probs")
                                 for s in spans.spans(run, n)])
         assert _read("chunk_idle_ms.labels", run) == pytest.approx(
